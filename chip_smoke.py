@@ -4,19 +4,30 @@
 
 Phases, one line each (any failure exits non-zero, before the last line):
   1. device: requires CUDA; prints the card's name and power limit.
-  2. build: compiles the CUDA kernel K1 (csrc/scatter_add.cu) with nvcc.
+  2. build: compiles the CUDA sources (csrc/scatter_add.cu: K1;
+     csrc/gather_probes.cu: K2-K4) with nvcc, one process per source, all
+     started together.
   3. K1 against its plain PyTorch version on the card: the cases of the
      JAX package's scatter-add tests, the main-path shape (65,536 samples x
      8 levels x 8 corners of the L8C4 lg19 grid), and the hash-grid backward
      on the card against the same backward on the CPU.
-  4. train: the bench configuration (L8C4 lg19, 4096-ray batches of a
+  4. gather: K2 take_rows, K3 take_lanes and K4 grid_probe at the full
+     width of every TPU call site they replace (P1, P2, P2b, G, G2; P3, P3x
+     x4; P4, P4b, P6), each equal to its plain version and to the PyTorch
+     call for the same function (torch.equal), timed against both (plain,
+     library, kernel, kernel, library, plain) beside its bound, and its
+     device time under the profiler.
+  5. probes: the two gather-probe entry points (laenerf_tpu_torch.perf.
+     microbench_pallas and microbench_gather, --n 16), with the launch
+     counts of K2-K4 set to 0 before and read after; each must launch.
+  6. train: the bench configuration (L8C4 lg19, 4096-ray batches of a
      16-view 100x100 synthetic scene), mark_untrained, then 272
      Trainer.train_one_batch steps (17 occupancy refreshes, the last one
      partial). The loss must fall, the density grid's mean must halve, and
      every step must launch K1.
-  5. render: one 800x800 frame with Trainer.render_image, and the
+  7. render: one 800x800 frame with Trainer.render_image, and the
      train-view PSNR at 100x100.
-  6. profile: kernel launches and device-busy share of a few train steps.
+  8. profile: kernel launches and device-busy share of a few train steps.
 Then one JSON line with every kernel of the path, the nvidia-smi line, and
 the final {"ok": true, "device": ...} line.
 
@@ -29,6 +40,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -36,6 +48,12 @@ import torch
 TRAIN_STEPS = 272
 RENDER_HW = 800
 REL_TOL = 1e-5  # K1 vs plain, f32: atomics sum in another order each run
+SOURCES = ("scatter_add.cu", "gather_probes.cu")
+# the least time of a kernel: the larger of its bytes over the memory rate
+# and its operations over the peak rate (NVIDIA's H100 SXM data sheet, 700 W)
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+SECTOR = 32  # bytes: the unit in which L2 and HBM serve a random read
 
 
 def phase(name, msg):
@@ -60,6 +78,30 @@ def cuda_ms(fn, reps=20):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bound_of(n_bytes, n_ops=0):
+    """(bound_ms, bound_by) for n_bytes moved and n_f32_ops done."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def device_ms(fn, reps=10):
+    """Device time per call of fn: the sum of its CUDA kernels' times under
+    torch.profiler, without the host's launch gaps; None if the profiler
+    saw no kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.device_time for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sum(us) / 1e3 / reps if us else None
 
 
 def rel_err(got, ref):
@@ -156,12 +198,25 @@ def phase_k1(card, dev, model_cfg):
     def plain():
         scatter_add_rows_plain(idx, rows, T)
 
-    # in turns on one card: plain, kernel, kernel, plain
-    p0, k0, k1_, p1 = cuda_ms(plain), cuda_ms(k1), cuda_ms(k1), cuda_ms(plain)
-    ms, plain_ms = (k0 + k1_) / 2, (p0 + p1) / 2
+    idx64, rows32 = idx.long(), rows.float()
+
+    def library():
+        torch.zeros((T, rows.shape[1]), device=dev).index_add_(0, idx64,
+                                                               rows32)
+
+    # in turns on one card: plain, library, kernel, kernel, library, plain
+    p0, l0, k0, k1_, l1, p1 = (cuda_ms(plain), cuda_ms(library), cuda_ms(k1),
+                               cuda_ms(k1), cuda_ms(library), cuda_ms(plain))
+    ms, plain_ms, library_ms = (k0 + k1_) / 2, (p0 + p1) / 2, (l0 + l1) / 2
+    # each input read once, the [T, C] f32 output written once; one f32 add
+    # per update element
+    bound_ms, bound_by = bound_of(
+        idx.numel() * 4 + rows.numel() * rows.element_size()
+        + T * rows.shape[1] * 4, n_ops=rows.numel())
     phase("k1", f"main path: {idx.shape[0]} rows x C={rows.shape[1]} into "
-                f"{T} rows, rel err {err:.2e}; K1 {ms:.4f} ms vs index_add_ "
-                f"{plain_ms:.4f} ms ({card})")
+                f"{T} rows, rel err {err:.2e}; K1 {ms:.4f} ms vs plain "
+                f"{plain_ms:.4f} ms, index_add_ alone {library_ms:.4f} ms, "
+                f"bound {bound_ms:.4f} ms ({bound_by}) ({card})")
 
     # the hash-grid backward through K1 on the card against the same
     # backward on the CPU (the plain scatter-add)
@@ -180,7 +235,178 @@ def phase_k1(card, dev, model_cfg):
     phase("k1", f"hash-grid backward on the card vs CPU: rel err "
                 f"{err_bwd:.2e}")
     return {"max_abs_err": max(worst, max_abs), "ms": ms,
-            "plain_ms": plain_ms}
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+
+
+def gather_sites(dev):
+    """(site, kernel, TPU kernel it replaces, args, kwargs, queries) at the
+    full width of every call site of rows 1-8 of PERF.md's kernel table."""
+    from laenerf_tpu_torch.ops.gather import grid_probe, take_lanes, take_rows
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    f32, i32, i8 = torch.float32, torch.int32, torch.int8
+
+    def ri(high, shape, dtype=i32):
+        return torch.randint(0, high, shape, generator=g, device=dev,
+                             dtype=dtype)
+
+    def table(shape, dtype, high=2):
+        if dtype == f32:
+            return torch.randn(shape, generator=g, device=dev)
+        return ri(high, shape, dtype)
+
+    mp, mg = "perf/microbench_pallas.py", "perf/microbench_gather.py"
+    sites = []
+    for site, dtype, Q, tpu in (("P1", f32, 4096, f"{mp}:77"),
+                                ("P2", i8, 4096, f"{mp}:99"),
+                                ("P2b", i32, 4096, f"{mp}:77"),
+                                ("G", f32, 8192, f"{mg}:174"),
+                                ("G2", f32, 8192, f"{mg}:200")):
+        sites.append((site, take_rows, tpu,
+                      (table((4096, 128), dtype), ri(4096, (Q, 128))), {},
+                      Q * 128))
+    sites.append(("P3", take_lanes, f"{mp}:138",
+                  (table((4096, 128), f32), ri(128, (4096, 128))), {},
+                  4096 * 128))
+    for rows, lanes in ((8, 262144), (16, 131072), (64, 32768),
+                        (128, 16384)):
+        sites.append((f"P3x[{rows}x{lanes}]", take_lanes, f"{mp}:230",
+                      (table((rows, lanes), i8, 8), ri(lanes, (1, 16384))),
+                      {}, 16384))
+    for site, dtype in (("P4", i32), ("P4b", i8)):
+        sites.append((site, grid_probe, f"{mp}:167",
+                      (table((16384, 128), dtype), ri(16384, (16384,)),
+                       ri(128, (16384,))), {"lanes": 128}, 16384))
+    sites.append(("P6", grid_probe, f"{mp}:261",
+                  (table((8, 262144), i8, 8), ri(8, (16384,)),
+                   ri(262144, (16384,))), {"out_dtype": i32}, 16384))
+    return sites
+
+
+def gather_library_and_cells(kernel, args, kw):
+    """The one PyTorch call that computes the kernel's function on the same
+    inputs (int64 indices, made once), and the flat table element each
+    output reads."""
+    tbl = args[0]
+    if kernel.__name__ == "take_rows":
+        rows = args[1].long()
+        W = tbl.shape[1]
+        return (lambda: torch.gather(tbl, 0, rows),
+                rows * W + torch.arange(W, device=tbl.device))
+    if kernel.__name__ == "take_lanes":
+        R, L = tbl.shape
+        idx = args[1].long().expand(R, -1)
+        return (lambda: torch.gather(tbl, 1, idx),
+                torch.arange(R, device=tbl.device)[:, None] * L + idx)
+    lanes = kw.get("lanes", 1)
+    row = args[1].long()[:, None].expand(-1, lanes)
+    col = args[2].long()[:, None].expand(-1, lanes)
+    # advanced indexing gives the grid's dtype: P6's cast to int32 is left
+    # out of the library call
+    return lambda: tbl[row, col], row * tbl.shape[1] + col
+
+
+def phase_gather(card, dev):
+    from laenerf_tpu_torch.ops import gather
+
+    plains = {gather.take_rows: gather.take_rows_plain,
+              gather.take_lanes: gather.take_lanes_plain,
+              gather.grid_probe: gather.grid_probe_plain}
+    results = []
+    for site, kernel, tpu, args, kw, queries in gather_sites(dev):
+        got = kernel(*args, **kw)
+        ref = plains[kernel](*args, **kw)
+        library, cells = gather_library_and_cells(kernel, args, kw)
+        lib = library()
+        torch.cuda.synchronize()
+        if not (torch.equal(got, ref) and torch.equal(
+                got, lib.to(got.dtype).reshape(got.shape))):
+            raise AssertionError(f"{kernel.__name__} {site}: differs from "
+                                 f"its plain version or the library call")
+        max_abs = (got.double() - ref.double()).abs().max().item()
+        # bytes that must move: every index and output byte once, and the
+        # table's distinct 32-byte sectors that this run's indices touch
+        tbl = args[0]
+        sectors = torch.unique(cells.reshape(-1) * tbl.element_size()
+                               // SECTOR).numel()
+        n_bytes = (sum(a.numel() * a.element_size() for a in args[1:])
+                   + got.numel() * got.element_size()
+                   + min(sectors * SECTOR, tbl.numel() * tbl.element_size()))
+        bound_ms, bound_by = bound_of(n_bytes)
+
+        def run():
+            kernel(*args, **kw)
+
+        def plain():
+            plains[kernel](*args, **kw)
+
+        # in turns on one card: plain, library, kernel, kernel, library, plain
+        t = [cuda_ms(f) for f in (plain, library, run, run, library, plain)]
+        ms, library_ms, plain_ms = ((t[2] + t[3]) / 2, (t[1] + t[4]) / 2,
+                                    (t[0] + t[5]) / 2)
+        dev_ms, dev_library_ms = device_ms(run), device_ms(library)
+        results.append({"site": site, "kernel": kernel.__name__,
+                        "replaces": tpu, "ms": ms, "plain_ms": plain_ms,
+                        "library_ms": library_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by, "bytes": n_bytes,
+                        "device_ms": dev_ms,
+                        "library_device_ms": dev_library_ms,
+                        "max_abs_err": max_abs})
+        phase("gather", f"{kernel.__name__} {site} ({tpu}): equal to plain "
+                        f"and library; {ms:.4f} ms ({1e6 * ms / queries:.4f} "
+                        f"ns/query) vs library {library_ms:.4f} ms, plain "
+                        f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                        f"({n_bytes} B, {bound_by}); device time under the "
+                        f"profiler: kernel {dev_ms} ms, library "
+                        f"{dev_library_ms} ms ({card})")
+    return results
+
+
+def phase_probes(card):
+    """The gather-probe entry points, as a user runs them, on the card."""
+    from laenerf_tpu_torch.ops.gather import grid_probe, take_lanes, take_rows
+    from laenerf_tpu_torch.perf import microbench_gather, microbench_pallas
+
+    kernels = (take_rows, take_lanes, grid_probe)
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    rows = {**microbench_pallas.main(["--n", "16"]),
+            **microbench_gather.main(["--n", "16"])}
+    launches = {k.__name__: k.launches for k in kernels}
+    bad = [label for label, sec in rows.items()
+           if not (math.isfinite(sec) and sec > 0)]
+    if bad:
+        raise AssertionError(f"probe rows without a time: {bad}")
+    if not all(launches.values()):
+        raise AssertionError(f"a gather kernel did not launch on the probe "
+                             f"path: {launches}")
+    phase("probes", f"{len(rows)} probe rows in "
+                    f"{time.perf_counter() - t0:.1f} s; launches {launches} "
+                    f"({card})")
+    return launches
+
+
+def kernel_entry(name, source, results, launches):
+    """One kernel's line entry: times and bounds summed over its call
+    sites (one call at each), every site listed."""
+    mine = [r for r in results if r["kernel"] == name]
+    return {
+        "name": name, "route": "cuda", "source": source,
+        "replaces": ", ".join(dict.fromkeys(r["replaces"] for r in mine)),
+        "launches": launches[name],
+        "max_abs_err": max(r["max_abs_err"] for r in mine),
+        "ms": sum(r["ms"] for r in mine),
+        "plain_ms": sum(r["plain_ms"] for r in mine),
+        "bound_ms": sum(r["bound_ms"] for r in mine),
+        "bound_by": "bytes",
+        "library_ms": sum(r["library_ms"] for r in mine),
+        "sites": [{k: r[k] for k in ("site", "replaces", "ms", "plain_ms",
+                                     "library_ms", "bound_ms", "device_ms",
+                                     "library_device_ms")}
+                  for r in mine],
+    }
 
 
 def phase_train(card, dev, tmp):
@@ -310,15 +536,21 @@ def main():
                     f"nvidia-smi: {card}")
 
     t0 = time.perf_counter()
-    cuda_build.load_library("scatter_add.cu")
-    info = cuda_build.build_info["scatter_add.cu"]
-    regs = [ln.strip() for ln in info["ptxas"].splitlines() if "Used" in ln]
-    phase("build", f"K1 built in {time.perf_counter() - t0:.1f} s "
-                   f"(nvcc sm_90a); ptxas: {' | '.join(regs) or 'cached'}")
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        list(pool.map(cuda_build.load_library, SOURCES))
+    for src in SOURCES:
+        info = cuda_build.build_info[src]
+        regs = [ln.strip() for ln in info["ptxas"].splitlines()
+                if "Used" in ln]
+        phase("build", f"{src} built in {info['seconds']:.1f} s (nvcc "
+                       f"sm_90a); ptxas: {' | '.join(regs) or 'cached'}")
+    phase("build", f"all sources in {time.perf_counter() - t0:.1f} s")
 
     model_cfg = NeRFConfig(bound=1.0, num_levels=8, level_dim=4,
                            log2_hashmap_size=19)
     k1 = phase_k1(card, dev, model_cfg)
+    gather_results = phase_gather(card, dev)
+    gather_launches = phase_probes(card)
 
     with tempfile.TemporaryDirectory() as tmp:
         scatter_add_rows.launches = 0
@@ -332,6 +564,7 @@ def main():
         phase("train", f"K1 launches on the main path: {launches}")
         phase_profile(tr, ds)
 
+    gather_src = "laenerf_tpu_torch/csrc/gather_probes.cu"
     print(json.dumps({"kernels": [{
         "name": "scatter_add_rows",
         "route": "cuda",
@@ -341,7 +574,12 @@ def main():
         "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"],
         "plain_ms": k1["plain_ms"],
-    }]}), flush=True)
+        "bound_ms": k1["bound_ms"],
+        "bound_by": k1["bound_by"],
+        "library_ms": k1["library_ms"],
+    }] + [kernel_entry(name, gather_src, gather_results, gather_launches)
+          for name in ("take_rows", "take_lanes", "grid_probe")]}),
+        flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

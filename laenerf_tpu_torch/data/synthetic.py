@@ -5,7 +5,7 @@ Writes a miniature blender-format scene (transforms_{train,val,test}.json +
 RGBA pngs) by densely volume-rendering an analytic scene of colored
 constant-density spheres (or the typed primitives of the JAX package's
 lego-class scene). The ground-truth renderer runs in torch on the given
-device.
+device, the card unless the caller asks for the CPU.
 """
 
 import json
@@ -155,7 +155,8 @@ def _render_view(pose, H, W, focal, spheres, n_steps=384, aa: int = 1, *,
 
 def generate_synthetic_scene(out_dir, n_train=20, n_val=2, n_test=3, H=100,
                              W=100, radius=3.5, camera_angle_x=0.8,
-                             spheres=None, seed=0, aa: int = 1, *, device):
+                             spheres=None, seed=0, aa: int = 1, *,
+                             device="cuda"):
     """Write a blender-format scene under out_dir. Returns out_dir."""
     spheres = spheres or DEFAULT_SPHERES
     os.makedirs(out_dir, exist_ok=True)

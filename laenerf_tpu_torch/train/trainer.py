@@ -102,7 +102,7 @@ class Trainer:
     """Host-side training orchestration for the NeRF main path."""
 
     def __init__(self, model_cfg: NeRFConfig, render_cfg: RenderConfig, *,
-                 device, lr: float = 1e-2, iters: int = 30000,
+                 device="cuda", lr: float = 1e-2, iters: int = 30000,
                  ema_decay: float = 0.95, update_interval: int = 16,
                  bg_white: bool = False, eval_chunk: int = 16384,
                  seed: int = 0):

@@ -6,14 +6,18 @@ machine without JAX:
 
     python -m pytest tests/test_torch_cuda.py -q -m cuda --noconftest
 
-Tolerance: relative 1e-5 of the max (f32 atomics sum in another order on
-every run).
+Tolerance: the scatter-add at relative 1e-5 of the max (f32 atomics sum in
+another order on every run); the gathers exactly (they move values without
+arithmetic).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from laenerf_tpu_torch.ops.gather import (grid_probe, grid_probe_plain,
+                                          take_lanes, take_lanes_plain,
+                                          take_rows, take_rows_plain)
 from laenerf_tpu_torch.ops.hashgrid import HashGridSpec, hashgrid_encode
 from laenerf_tpu_torch.ops.scatter_add import (scatter_add_rows,
                                                scatter_add_rows_plain)
@@ -97,3 +101,90 @@ def test_hashgrid_backward_on_card_matches_cpu(cuda):
         (hashgrid_encode(t, x.to(dev), spec) * cot.to(dev)).sum().backward()
         grads.append(t.grad.cpu())
     assert _rel_err(grads[0], grads[1]) < REL_TOL
+
+
+GATHER_DTYPES = {"f32": torch.float32, "i32": torch.int32, "i8": torch.int8}
+
+
+def _gather_table(rng, shape, dtype, dev):
+    if dtype == torch.float32:
+        return torch.tensor(rng.randn(*shape), dtype=dtype, device=dev)
+    return torch.tensor(rng.randint(-128, 128, shape), dtype=dtype,
+                        device=dev)
+
+
+def _idx(rng, high, shape, dev):
+    return torch.tensor(rng.randint(0, high, shape), dtype=torch.int32,
+                        device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(GATHER_DTYPES))
+def test_take_rows_kernel_matches_plain(cuda, dtype):
+    rng = np.random.RandomState(0)
+    tbl = _gather_table(rng, (1000, 128), GATHER_DTYPES[dtype], cuda)
+    rows = _idx(rng, 1000, (3000, 128), cuda)
+    before = take_rows.launches
+    got = take_rows(tbl, rows)
+    torch.cuda.synchronize()
+    assert take_rows.launches == before + 1
+    assert torch.equal(got, take_rows_plain(tbl, rows))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("broadcast", [False, True])
+@pytest.mark.parametrize("dtype", sorted(GATHER_DTYPES))
+def test_take_lanes_kernel_matches_plain(cuda, dtype, broadcast):
+    rng = np.random.RandomState(1)
+    tbl = _gather_table(rng, (64, 5000), GATHER_DTYPES[dtype], cuda)
+    idx = _idx(rng, 5000, (1 if broadcast else 64, 777), cuda)
+    before = take_lanes.launches
+    got = take_lanes(tbl, idx)
+    torch.cuda.synchronize()
+    assert take_lanes.launches == before + 1
+    assert got.shape == (64, 777)
+    assert torch.equal(got, take_lanes_plain(tbl, idx))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [1, 128])
+@pytest.mark.parametrize("pair", ["f32_f32", "i32_i32", "i8_i8", "i8_i32"])
+def test_grid_probe_kernel_matches_plain(cuda, pair, lanes):
+    din, dout = (GATHER_DTYPES[p] for p in pair.split("_"))
+    rng = np.random.RandomState(2)
+    grid = _gather_table(rng, (4096, 96), din, cuda)
+    row, col = _idx(rng, 4096, (5000,), cuda), _idx(rng, 96, (5000,), cuda)
+    before = grid_probe.launches
+    got = grid_probe(grid, row, col, lanes=lanes, out_dtype=dout)
+    torch.cuda.synchronize()
+    assert grid_probe.launches == before + 1
+    assert got.shape == (5000, lanes) and got.dtype == dout
+    assert torch.equal(got, grid_probe_plain(grid, row, col, lanes, dout))
+
+
+@pytest.mark.cuda
+def test_gather_kernels_reject_what_they_do_not_take(cuda):
+    tbl = torch.zeros((16, 8), device=cuda)
+    rows = torch.zeros((4, 8), dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):  # int64 index
+        take_rows(tbl, rows.long())
+    with pytest.raises(TypeError):  # float64 table
+        take_rows(tbl.double(), rows)
+    with pytest.raises(ValueError):  # non-contiguous table
+        take_rows(torch.zeros((8, 16), device=cuda).t(), rows)
+    with pytest.raises(ValueError):  # CPU index, CUDA table
+        take_rows(tbl, rows.cpu())
+    idx = torch.zeros((16, 4), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):  # non-contiguous index
+        take_lanes(tbl, torch.zeros((4, 16), dtype=torch.int32,
+                                    device=cuda).t())
+    with pytest.raises(ValueError):  # CPU index, CUDA table
+        take_lanes(tbl, idx.cpu())
+    q = torch.zeros(5, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):  # CPU col, CUDA grid
+        grid_probe(tbl, q, q.cpu())
+    with pytest.raises(TypeError):  # an f32 grid cannot be written as int32
+        grid_probe(tbl, q, q, out_dtype=torch.int32)
+    empty = take_rows(tbl, torch.zeros((0, 8), dtype=torch.int32,
+                                       device=cuda))
+    assert empty.shape == (0, 8)

@@ -182,3 +182,23 @@ def test_trainer_trains_on_cpu():
     assert tr.occ_state.iter_density == 18  # 16 full updates, 2 partial
     assert np.all(np.isfinite(losses))
     assert np.mean(losses[-6:]) < np.mean(losses[:6])
+
+
+def test_entry_points_default_to_the_card(tmp_path):
+    """Trainer and generate_synthetic_scene run on the card unless the
+    caller asks for the CPU; without a GPU they raise, never fall back."""
+    import inspect
+
+    import pytest
+
+    from laenerf_tpu_torch.data import generate_synthetic_scene
+
+    for fn in (ttrain.Trainer, generate_synthetic_scene):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        return
+    with pytest.raises((RuntimeError, AssertionError)):
+        ttrain.Trainer(MODEL_CFG, RENDER_CFG)
+    with pytest.raises((RuntimeError, AssertionError)):
+        generate_synthetic_scene(str(tmp_path), n_train=1, n_val=0, n_test=0,
+                                 H=4, W=4)
