@@ -2,10 +2,12 @@
 
     python3 chip_smoke.py
 
-Phases, one line each (any failure exits non-zero, before the last line):
+Phases, one or more lines each, tagged with the seconds since the start
+(any failure exits non-zero, before the last line):
   1. device: requires CUDA; prints the card's name and power limit.
   2. build: compiles the CUDA sources (csrc/scatter_add.cu: K1;
-     csrc/gather_probes.cu: K2-K4) with nvcc, one process per source, all
+     csrc/gather_probes.cu: K2-K4; csrc/sorted_scatter.cu: K5, K6;
+     csrc/construct_probes.cu: K7) with nvcc, one process per source, all
      started together.
   3. K1 against its plain PyTorch version on the card: the cases of the
      JAX package's scatter-add tests, the main-path shape (65,536 samples x
@@ -20,14 +22,30 @@ Phases, one line each (any failure exits non-zero, before the last line):
   5. probes: the two gather-probe entry points (laenerf_tpu_torch.perf.
      microbench_pallas and microbench_gather, --n 16), with the launch
      counts of K2-K4 set to 0 before and read after; each must launch.
-  6. train: the bench configuration (L8C4 lg19, 4096-ray batches of a
+  6. scatter: K5 tile_scatter and K6 worklist_scatter at the full shapes of
+     rows 10-12 of PERF.md's kernel table (2,097,152 sorted updates of
+     C = 8 into 2,936,936 rows: K5 f32 at 1,024-row tiles, K6 f32 at 1,024
+     and bf16 at 2,048), each within rel 1e-5 of its plain version and of
+     index_add_ on the unsorted updates, timed against both and against K1
+     on the same unsorted updates, beside its byte bound and its device
+     time under the profiler; the largest per-tile update count.
+  7. constructs: the eight K7 constructs (perf/bisect_mosaic.py's k1-k7,
+     k6b), each equal to its plain version and, for the six that have one,
+     to the PyTorch call for the same function (torch.equal) on the
+     script's inputs and on random ones, timed against both on the random
+     ones.
+  8. probes: the four scatter entry points (microbench_scatter2,
+     probe_worklist, probe_worklist2 at --n 12; bisect_mosaic), with the
+     launch counts of K5-K7 set to 0 before and read after; each must
+     launch, and bisect_mosaic must print eight OK lines.
+  9. train: the bench configuration (L8C4 lg19, 4096-ray batches of a
      16-view 100x100 synthetic scene), mark_untrained, then 272
      Trainer.train_one_batch steps (17 occupancy refreshes, the last one
      partial). The loss must fall, the density grid's mean must halve, and
      every step must launch K1.
-  7. render: one 800x800 frame with Trainer.render_image, and the
+  10. render: one 800x800 frame with Trainer.render_image, and the
      train-view PSNR at 100x100.
-  8. profile: kernel launches and device-busy share of a few train steps.
+  11. profile: kernel launches and device-busy share of a few train steps.
 Then one JSON line with every kernel of the path, the nvidia-smi line, and
 the final {"ok": true, "device": ...} line.
 
@@ -48,16 +66,23 @@ import torch
 TRAIN_STEPS = 272
 RENDER_HW = 800
 REL_TOL = 1e-5  # K1 vs plain, f32: atomics sum in another order each run
-SOURCES = ("scatter_add.cu", "gather_probes.cu")
+SOURCES = ("scatter_add.cu", "gather_probes.cu", "sorted_scatter.cu",
+           "construct_probes.cu")
 # the least time of a kernel: the larger of its bytes over the memory rate
 # and its operations over the peak rate (NVIDIA's H100 SXM data sheet, 700 W)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_TC_OPS_PER_S = 989e12  # dense bf16 on the tensor cores
 SECTOR = 32  # bytes: the unit in which L2 and HBM serve a random read
 
 
+START = time.perf_counter()
+
+
 def phase(name, msg):
-    print(f"[{name}] {msg}", flush=True)
+    """One line of a phase, tagged with the seconds since the script
+    started (the time limit covers the whole run)."""
+    print(f"[{name} {time.perf_counter() - START:.1f}s] {msg}", flush=True)
 
 
 def card_line():
@@ -80,9 +105,10 @@ def cuda_ms(fn, reps=20):
     return start.elapsed_time(end) / reps
 
 
-def bound_of(n_bytes, n_ops=0):
-    """(bound_ms, bound_by) for n_bytes moved and n_f32_ops done."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S
+def bound_of(n_bytes, n_ops=0, ops_per_s=F32_OPS_PER_S):
+    """(bound_ms, bound_by) for n_bytes moved and n_ops done at
+    ops_per_s (f32 outside the tensor cores by default)."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / ops_per_s
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -208,6 +234,7 @@ def phase_k1(card, dev, model_cfg):
     p0, l0, k0, k1_, l1, p1 = (cuda_ms(plain), cuda_ms(library), cuda_ms(k1),
                                cuda_ms(k1), cuda_ms(library), cuda_ms(plain))
     ms, plain_ms, library_ms = (k0 + k1_) / 2, (p0 + p1) / 2, (l0 + l1) / 2
+    dev_ms, dev_library_ms = device_ms(k1), device_ms(library)
     # each input read once, the [T, C] f32 output written once; one f32 add
     # per update element
     bound_ms, bound_by = bound_of(
@@ -216,7 +243,9 @@ def phase_k1(card, dev, model_cfg):
     phase("k1", f"main path: {idx.shape[0]} rows x C={rows.shape[1]} into "
                 f"{T} rows, rel err {err:.2e}; K1 {ms:.4f} ms vs plain "
                 f"{plain_ms:.4f} ms, index_add_ alone {library_ms:.4f} ms, "
-                f"bound {bound_ms:.4f} ms ({bound_by}) ({card})")
+                f"bound {bound_ms:.4f} ms ({bound_by}); device time under "
+                f"the profiler: K1 {dev_ms} ms, index_add_ {dev_library_ms} "
+                f"ms ({card})")
 
     # the hash-grid backward through K1 on the card against the same
     # backward on the CPU (the plain scatter-add)
@@ -236,7 +265,8 @@ def phase_k1(card, dev, model_cfg):
                 f"{err_bwd:.2e}")
     return {"max_abs_err": max(worst, max_abs), "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}
+            "library_ms": library_ms, "device_ms": dev_ms,
+            "library_device_ms": dev_library_ms}
 
 
 def gather_sites(dev):
@@ -388,10 +418,260 @@ def phase_probes(card):
     return launches
 
 
+def tensor_bytes(args):
+    return sum(a.numel() * a.element_size() for a in args
+               if isinstance(a, torch.Tensor))
+
+
+def phase_scatter(card, dev):
+    """K5 and K6 at the full shapes of rows 10-12 of the kernel table."""
+    from laenerf_tpu_torch.ops.scatter_add import scatter_add_rows
+    from laenerf_tpu_torch.ops.sorted_scatter import (
+        build_worklist, sort_stage, tile_scatter,
+        tile_scatter_plain, work_sizes, worklist_scatter,
+        worklist_scatter_plain)
+    from laenerf_tpu_torch.perf.scatter_inputs import (FULL, FULL_2048,
+                                                       make_inputs)
+
+    t0 = time.perf_counter()
+    idx_np, g_np = make_inputs(FULL)
+    idx = torch.from_numpy(idx_np).to(dev)
+    g = torch.from_numpy(g_np).to(dev)
+    idx64 = idx.long()
+    Q, C = g.shape
+    phase("scatter", f"inputs: {Q} updates of C={C} into {FULL.T} rows "
+                     f"(perf/scatter_inputs.py) in "
+                     f"{time.perf_counter() - t0:.1f} s")
+    results = []
+    for site, kernel, shape, dtype, tpu in (
+            ("row 10 K5 f32 tile 1024", tile_scatter, FULL, torch.float32,
+             "perf/microbench_scatter2.py:137"),
+            ("row 11 K6 f32 tile 1024", worklist_scatter, FULL,
+             torch.float32, "perf/probe_worklist.py:71"),
+            ("row 12 K6 bf16 tile 2048", worklist_scatter, FULL_2048,
+             torch.bfloat16, "perf/probe_worklist2.py:71")):
+        tile, maxu = shape.tile, shape.maxu
+        sizes = work_sizes(Q, shape.T, tile, maxu)
+        rows = g.to(dtype)
+        qs, gs, lo = sort_stage(idx, rows, tile, sizes.n_tiles)
+        if kernel is tile_scatter:
+            args, plain = (qs, gs, lo, tile), tile_scatter_plain
+        else:
+            wt, wb, _, wreal = build_worklist(lo, maxu, sizes.w_cap,
+                                              sizes.q_blks)
+            args = (qs, gs, wt, wb, wreal, tile, maxu, sizes.n_tiles)
+            plain = worklist_scatter_plain
+        rows32 = rows.float()
+        precision = "f32" if dtype == torch.float32 else "bf16"
+
+        def run():
+            return kernel(*args)
+
+        def plain_run():
+            return plain(*args)
+
+        def library():
+            return torch.zeros((sizes.t_pad, C), device=dev).index_add_(
+                0, idx64, rows32)
+
+        def k1():
+            return scatter_add_rows(idx, rows, sizes.t_pad,
+                                    precision=precision)
+
+        got, ref, lib, k1_out = run(), plain_run(), library(), k1()
+        torch.cuda.synchronize()
+        errs = {"plain": rel_err(got, ref), "index_add_": rel_err(got, lib),
+                "K1 vs index_add_": rel_err(k1_out, lib)}
+        if not all(e < REL_TOL for e in errs.values()):
+            raise AssertionError(f"{site}: rel errs {errs}")
+        max_abs = (got - ref).abs().max().item()
+        cnt = lo[1:] - lo[:-1]
+        n_bytes = tensor_bytes(args) + got.numel() * got.element_size()
+        # one f32 add per update element
+        bound_ms, bound_by = bound_of(n_bytes, n_ops=Q * C)
+        # in turns on one card
+        t = [cuda_ms(f) for f in (plain_run, library, k1, run, run, k1,
+                                  library, plain_run)]
+        ms, k1_ms = (t[3] + t[4]) / 2, (t[2] + t[5]) / 2
+        library_ms, plain_ms = (t[1] + t[6]) / 2, (t[0] + t[7]) / 2
+        dev_t = {name: device_ms(f) for name, f in
+                 (("kernel", run), ("library", library), ("k1", k1))}
+        results.append({"site": site, "kernel": kernel.__name__,
+                        "replaces": tpu, "ms": ms, "plain_ms": plain_ms,
+                        "library_ms": library_ms, "k1_ms": k1_ms,
+                        "bound_ms": bound_ms, "bound_by": bound_by,
+                        "bytes": n_bytes, "device_ms": dev_t["kernel"],
+                        "library_device_ms": dev_t["library"],
+                        "k1_device_ms": dev_t["k1"], "max_abs_err": max_abs})
+        phase("scatter", f"{site} ({tpu}): {kernel.__name__} rel err "
+                         f"{errs['plain']:.2e} vs plain, "
+                         f"{errs['index_add_']:.2e} vs index_add_ of the "
+                         f"unsorted updates; {sizes.n_tiles} tiles, largest "
+                         f"{int(cnt.max())} updates, {int((cnt == 0).sum())} "
+                         f"empty; {ms:.4f} ms vs plain {plain_ms:.4f} ms, "
+                         f"index_add_ {library_ms:.4f} ms, K1 on the unsorted "
+                         f"updates {k1_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                         f"({n_bytes} B, {bound_by}); device time under the "
+                         f"profiler: kernel {dev_t['kernel']} ms, index_add_ "
+                         f"{dev_t['library']} ms, K1 {dev_t['k1']} ms "
+                         f"({card})")
+    return results
+
+
+def construct_library(fn, args):
+    """The one PyTorch call that computes a K7 construct's function on the
+    same inputs (index tensors and the kept one-hot rows made once, views
+    free), or None where no single call does: k5's loop (a clamp, then a
+    repeat) and k7's iota (an arange, then a repeat; it has no input). Where
+    the construct casts int32 to f32 (k1, k4), the cast is left out."""
+    from laenerf_tpu_torch.ops import construct_probes as cp
+
+    name = fn.__name__
+    if name == "prefetch_write":
+        lo, n, tile, C = args
+        lo_rows = lo[:n, None].expand(n, C)
+        return lambda: torch.repeat_interleave(lo_rows, tile, dim=0)
+    if name == "static_copy":
+        g, n, tile = args
+        head = g[:tile]
+        return lambda: head.repeat(n, 1)
+    if name in ("dynamic_copy", "copy_1d"):
+        src, lo, n, tile = args[:4]
+        rows = (lo[:n].long()[:, None]
+                + torch.arange(tile, device=src.device)).reshape(-1)
+        if name == "dynamic_copy":
+            return lambda: torch.index_select(src, 0, rows)
+        cells = rows[:, None].expand(-1, args[4])
+        return lambda: torch.take(src, cells)
+    if name == "onehot_dot":
+        local, g, tile = args
+        n, _, C = g.shape
+        loc = local.long()
+        keep = (loc >= 0) & (loc < tile)
+        rows = (loc + torch.arange(n, device=g.device)[:, None] * tile)[keep]
+        vals = g[keep].float()
+        return lambda: torch.zeros((n * tile, C), device=g.device).index_add_(
+            0, rows, vals)
+    if fn in (cp.dynamic_loop, cp.iota_rows):
+        return None
+    raise ValueError(f"no library rule for {name}")
+
+
+def phase_constructs(card, dev):
+    """K7: every construct equal to its plain version and to its library
+    call, where it has one, on the script's inputs and on random ones;
+    timed on the random ones."""
+    from laenerf_tpu_torch.ops.construct_probes import PLAIN, onehot_dot
+    from laenerf_tpu_torch.perf import bisect_mosaic
+
+    results = []
+    for seed in (None, 7):
+        for label, tpu, fn, args in bisect_mosaic.cases(dev, seed):
+            got, ref = fn(*args), PLAIN[fn](*args)
+            library = construct_library(fn, args)
+            lib = library() if library else None
+            torch.cuda.synchronize()
+            if not torch.equal(got, ref):
+                raise AssertionError(f"K7 {label} (seed {seed}) differs "
+                                     f"from its plain version")
+            if lib is not None and not torch.equal(
+                    got, lib.to(got.dtype).reshape(got.shape)):
+                raise AssertionError(f"K7 {label} (seed {seed}) differs "
+                                     f"from its library call")
+            if seed is None:
+                continue
+            n_bytes = tensor_bytes(args) + got.numel() * got.element_size()
+            n_ops, dense = 0, 0
+            if fn is onehot_dot:
+                # the product's terms that this run's one-hot holds, and
+                # the dense [tile, maxu] @ [maxu, C] product beside them
+                local, g, tile = args
+                n_ops = 2 * int(((local >= 0) & (local < tile)).sum()) \
+                    * g.shape[2]
+                dense = 2 * local.shape[0] * tile * local.shape[1] \
+                    * g.shape[2]
+            bound_ms, bound_by = bound_of(n_bytes, n_ops, BF16_TC_OPS_PER_S)
+
+            def run():
+                fn(*args)
+
+            def plain():
+                PLAIN[fn](*args)
+
+            # in turns on one card: plain, library, kernel, kernel,
+            # library, plain (no library turns where there is none)
+            t = [cuda_ms(f) if f else None
+                 for f in (plain, library, run, run, library, plain)]
+            ms, plain_ms = (t[2] + t[3]) / 2, (t[0] + t[5]) / 2
+            library_ms = (t[1] + t[4]) / 2 if library else None
+            dev_ms = device_ms(run)
+            dev_library_ms = device_ms(library) if library else None
+            results.append({"site": label, "kernel": fn.__name__,
+                            "replaces": tpu, "ms": ms, "plain_ms": plain_ms,
+                            "library_ms": library_ms, "bound_ms": bound_ms,
+                            "bound_by": bound_by, "bytes": n_bytes,
+                            "device_ms": dev_ms,
+                            "library_device_ms": dev_library_ms,
+                            "max_abs_err": 0.0})
+            extra = (f", dense product {dense / 1e9:.2f} GFLOP = "
+                     f"{1e3 * dense / BF16_TC_OPS_PER_S:.4f} ms at the bf16 "
+                     f"tensor-core peak" if dense else "")
+            lib_msg = (f"library {library_ms:.4f} ms" if library else
+                       "no single library call")
+            equal = "plain and library" if library else "plain"
+            phase("constructs", f"{label} ({tpu}): equal to {equal} on the "
+                                f"script's and random inputs; {ms:.4f} ms "
+                                f"vs plain "
+                                f"{plain_ms:.4f} ms, {lib_msg}, bound "
+                                f"{bound_ms:.5f} ms ({n_bytes} B, {n_ops} "
+                                f"ops, {bound_by}){extra}; device time "
+                                f"under the profiler: kernel {dev_ms} ms, "
+                                f"library {dev_library_ms} ms ({card})")
+    return results
+
+
+def phase_scatter_probes(card):
+    """The four scatter entry points, as a user runs them, on the card."""
+    from laenerf_tpu_torch.ops.construct_probes import PLAIN
+    from laenerf_tpu_torch.ops.sorted_scatter import (tile_scatter,
+                                                      worklist_scatter)
+    from laenerf_tpu_torch.perf import (bisect_mosaic, microbench_scatter2,
+                                        probe_worklist, probe_worklist2)
+
+    constructs = tuple(PLAIN)
+    for k in (tile_scatter, worklist_scatter) + constructs:
+        k.launches = 0
+    t0 = time.perf_counter()
+    rows = [script.main(["--n", "12"]) for script in
+            (microbench_scatter2, probe_worklist, probe_worklist2)]
+    bisect = bisect_mosaic.main(["--n", "16"])
+    launches = {k.__name__: k.launches for k in
+                (tile_scatter, worklist_scatter) + constructs}
+    bad = [label for r in rows for label, sec in r.items()
+           if not (math.isfinite(sec) and sec > 0)]
+    if bad:
+        raise AssertionError(f"probe rows without a time: {bad}")
+    if not all(bisect.values()):
+        raise AssertionError(f"bisect_mosaic: a construct failed {bisect}")
+    if not all(launches.values()):
+        raise AssertionError(f"a scatter or construct kernel did not launch "
+                             f"on the probe path: {launches}")
+    phase("probes", f"{sum(map(len, rows))} scatter probe rows and "
+                    f"{len(bisect)} OK constructs in "
+                    f"{time.perf_counter() - t0:.1f} s; launches {launches} "
+                    f"({card})")
+    return launches
+
+
 def kernel_entry(name, source, results, launches):
     """One kernel's line entry: times and bounds summed over its call
     sites (one call at each), every site listed."""
     mine = [r for r in results if r["kernel"] == name]
+    by_kind = {}
+    for r in mine:
+        by_kind[r["bound_by"]] = by_kind.get(r["bound_by"], 0.0) \
+            + r["bound_ms"]
+    libs = [r["library_ms"] for r in mine]
     return {
         "name": name, "route": "cuda", "source": source,
         "replaces": ", ".join(dict.fromkeys(r["replaces"] for r in mine)),
@@ -399,13 +679,13 @@ def kernel_entry(name, source, results, launches):
         "max_abs_err": max(r["max_abs_err"] for r in mine),
         "ms": sum(r["ms"] for r in mine),
         "plain_ms": sum(r["plain_ms"] for r in mine),
-        "bound_ms": sum(r["bound_ms"] for r in mine),
-        "bound_by": "bytes",
-        "library_ms": sum(r["library_ms"] for r in mine),
-        "sites": [{k: r[k] for k in ("site", "replaces", "ms", "plain_ms",
-                                     "library_ms", "bound_ms", "device_ms",
-                                     "library_device_ms")}
-                  for r in mine],
+        "bound_ms": sum(by_kind.values()),
+        "bound_by": max(by_kind, key=by_kind.get),
+        "library_ms": None if None in libs else sum(libs),
+        "sites": [{k: r.get(k) for k in (
+            "site", "replaces", "ms", "plain_ms", "library_ms", "k1_ms",
+            "bound_ms", "device_ms", "library_device_ms", "k1_device_ms")
+            if k in r} for r in mine],
     }
 
 
@@ -551,6 +831,9 @@ def main():
     k1 = phase_k1(card, dev, model_cfg)
     gather_results = phase_gather(card, dev)
     gather_launches = phase_probes(card)
+    scatter_results = phase_scatter(card, dev)
+    construct_results = phase_constructs(card, dev)
+    scatter_launches = phase_scatter_probes(card)
 
     with tempfile.TemporaryDirectory() as tmp:
         scatter_add_rows.launches = 0
@@ -565,6 +848,7 @@ def main():
         phase_profile(tr, ds)
 
     gather_src = "laenerf_tpu_torch/csrc/gather_probes.cu"
+    scatter_src = "laenerf_tpu_torch/csrc/sorted_scatter.cu"
     print(json.dumps({"kernels": [{
         "name": "scatter_add_rows",
         "route": "cuda",
@@ -578,7 +862,13 @@ def main():
         "bound_by": k1["bound_by"],
         "library_ms": k1["library_ms"],
     }] + [kernel_entry(name, gather_src, gather_results, gather_launches)
-          for name in ("take_rows", "take_lanes", "grid_probe")]}),
+          for name in ("take_rows", "take_lanes", "grid_probe")]
+        + [kernel_entry(name, scatter_src, scatter_results, scatter_launches)
+           for name in ("tile_scatter", "worklist_scatter")]
+        + [kernel_entry(name, "laenerf_tpu_torch/csrc/construct_probes.cu",
+                        construct_results, scatter_launches)
+           for name in dict.fromkeys(r["kernel"]
+                                     for r in construct_results)]}),
         flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

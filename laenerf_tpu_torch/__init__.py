@@ -3,7 +3,8 @@ NVIDIA H100.
 
 Same layout as the JAX package:
   ops/     — hash grid, SH, march, compaction, composite, K1 scatter-add,
-             K2-K4 gather probes
+             K2-K4 gather probes, K5-K6 sorted scatter-adds, K7 construct
+             probes
   models/  — NeRF network, occupancy grid, volume renderer
   data/    — rays, blender-format dataset, procedural synthetic scenes
   train/   — optimizer, train step, Trainer

@@ -14,15 +14,12 @@ and runs its plain version (`<fn>_plain`) on a CPU tensor. The plain versions
 raise on indices out of range, as torch.gather does; the kernels do not check.
 """
 
-import ctypes
-
 import torch
 
-from .cuda_build import load_library
+from .cuda_build import I64, P, launch, on_cpu
 
 _SOURCE = "gather_probes.cu"
 _DTYPES = {torch.float32: "f32", torch.int32: "i32", torch.int8: "i8"}
-_P, _I64 = ctypes.c_void_p, ctypes.c_longlong
 
 
 def take_rows_plain(tbl, rows):
@@ -57,14 +54,14 @@ def take_rows(tbl, rows):
     Returns:
       [Q, W] of tbl's dtype.
     """
-    if _on_cpu("take_rows", tbl, rows):
+    if on_cpu("take_rows", tbl, rows):
         return take_rows_plain(tbl, rows)
     _check_take_rows(tbl, rows)
     Q, W = rows.shape
     out = torch.empty((Q, W), dtype=tbl.dtype, device=tbl.device)
     if out.numel():
-        _launch(f"take_rows_{_DTYPES[tbl.dtype]}", [_P, _P, _P, _I64, _I64],
-                tbl, rows, out, Q, W)
+        launch(_SOURCE, f"take_rows_{_DTYPES[tbl.dtype]}",
+               [P, P, P, I64, I64], tbl, rows, out, Q, W)
         take_rows.launches += 1
     return out
 
@@ -80,7 +77,7 @@ def take_lanes(tbl, idx):
     Returns:
       [R, N] of tbl's dtype.
     """
-    if _on_cpu("take_lanes", tbl, idx):
+    if on_cpu("take_lanes", tbl, idx):
         return take_lanes_plain(tbl, idx)
     _check_take_lanes(tbl, idx)
     R, L = tbl.shape
@@ -88,9 +85,9 @@ def take_lanes(tbl, idx):
     out = torch.empty((R, N), dtype=tbl.dtype, device=tbl.device)
     if out.numel():
         row_stride = N if idx.shape[0] == R else 0
-        _launch(f"take_lanes_{_DTYPES[tbl.dtype]}",
-                [_P, _P, _P, _I64, _I64, _I64, _I64],
-                tbl, idx, out, R, L, N, row_stride)
+        launch(_SOURCE, f"take_lanes_{_DTYPES[tbl.dtype]}",
+               [P, P, P, I64, I64, I64, I64], tbl, idx, out, R, L, N,
+               row_stride)
         take_lanes.launches += 1
     return out
 
@@ -107,15 +104,16 @@ def grid_probe(grid, row, col, lanes: int = 1, out_dtype=None):
     Returns:
       [Q, lanes] of out_dtype.
     """
-    if _on_cpu("grid_probe", grid, row, col):
+    if on_cpu("grid_probe", grid, row, col):
         return grid_probe_plain(grid, row, col, lanes, out_dtype)
     out_dtype = _check_grid_probe(grid, row, col, lanes, out_dtype)
     Q = row.shape[0]
     out = torch.empty((Q, lanes), dtype=out_dtype, device=grid.device)
     if out.numel():
-        _launch(f"grid_probe_{_DTYPES[grid.dtype]}_{_DTYPES[out_dtype]}",
-                [_P, _P, _P, _P, _I64, _I64, _I64],
-                grid, row, col, out, Q, lanes, grid.shape[1])
+        launch(_SOURCE,
+               f"grid_probe_{_DTYPES[grid.dtype]}_{_DTYPES[out_dtype]}",
+               [P, P, P, P, I64, I64, I64], grid, row, col, out, Q, lanes,
+               grid.shape[1])
         grid_probe.launches += 1
     return out
 
@@ -123,40 +121,6 @@ def grid_probe(grid, row, col, lanes: int = 1, out_dtype=None):
 take_rows.launches = 0
 take_lanes.launches = 0
 grid_probe.launches = 0
-
-
-def _on_cpu(name, *tensors):
-    """True for CPU tensors; for CUDA tensors checks they share the card
-    and are contiguous; raises on any other device."""
-    dev = tensors[0].device
-    if any(t.device != dev for t in tensors):
-        raise ValueError(f"{name}: tensors on different devices "
-                         f"{[str(t.device) for t in tensors]}")
-    if dev.type == "cpu":
-        return True
-    if dev.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {dev}")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError(f"{name}: the kernel needs contiguous tensors")
-    return False
-
-
-_FNS = {}  # entry point name -> ctypes function, argtypes set once
-
-
-def _launch(fn_name, argtypes, *args):
-    fn = _FNS.get(fn_name)
-    if fn is None:
-        fn = getattr(load_library(_SOURCE), fn_name)
-        fn.argtypes = argtypes + [_P]
-        fn.restype = ctypes.c_int
-        _FNS[fn_name] = fn
-    dev = args[0].device
-    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    with torch.cuda.device(dev):
-        err = fn(*ptrs, torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{fn_name}: CUDA launch failed (cudaError {err})")
 
 
 def _check_table(name, tbl):

@@ -10,11 +10,9 @@ bounds it on the card). `scatter_add_rows_plain` computes the same function
 with `index_add_`; the wrapper uses it only for tensors on the CPU.
 """
 
-import ctypes
-
 import torch
 
-from .cuda_build import load_library
+from .cuda_build import I32, I64, P, launch
 
 _SOURCE = "scatter_add.cu"
 
@@ -68,20 +66,10 @@ def scatter_add_rows(idx, g, table_rows: int, *, precision: str = "bf16",
     Q, C = rows.shape
     out = torch.zeros((table_rows, C), dtype=torch.float32, device=g.device)
     if Q > 0:
-        lib = load_library(_SOURCE)
-        fn = (lib.scatter_add_rows_bf16 if rows.dtype == torch.bfloat16
-              else lib.scatter_add_rows_f32)
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
-                       ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        with torch.cuda.device(g.device):
-            stream = torch.cuda.current_stream().cuda_stream
-            err = fn(idx.data_ptr(), rows.data_ptr(), out.data_ptr(), Q, C,
-                     table_rows, stream)
-        if err != 0:
-            raise RuntimeError(f"scatter_add_rows: CUDA launch failed "
-                               f"(cudaError {err})")
+        name = ("scatter_add_rows_bf16" if rows.dtype == torch.bfloat16
+                else "scatter_add_rows_f32")
+        launch(_SOURCE, name, [P, P, P, I64, I32, I64], idx, rows, out, Q,
+               C, table_rows)
         scatter_add_rows.launches += 1
     return out if out_dtype in (None, torch.float32) else out.to(out_dtype)
 

@@ -3,14 +3,21 @@ the JAX package's perf/ directory:
 
     python -m laenerf_tpu_torch.perf.microbench_pallas [--n 16] [--device cuda]
     python -m laenerf_tpu_torch.perf.microbench_gather [--n 16] [--device cuda]
+    python -m laenerf_tpu_torch.perf.microbench_scatter2 [--n 12] [--small]
+    python -m laenerf_tpu_torch.perf.probe_worklist [--n 12] [--small]
+    python -m laenerf_tpu_torch.perf.probe_worklist2 [--n 12] [--small]
+    python -m laenerf_tpu_torch.perf.bisect_mosaic [--n 16] [--device cuda]
 
 Each prints the card's nvidia-smi line, then one row per probe under the JAX
-script's label: ms per call and ns per query. On the card a probe is timed
-with CUDA events around n back-to-back calls after one warm call; each call
-gets its own index set, the first one shifted by the call number modulo the
-table size (the JAX scripts shift by an accumulator to defeat constant
-folding). `--device cpu` runs the same probes on the host clock, through the
-kernels' plain versions: a CPU number is never a device number.
+script's label: ms per call and ns per query (per scalar for the scatters);
+bisect_mosaic prints one OK or FAIL line per construct. On the card a probe
+is timed with CUDA events around n back-to-back calls after one warm call;
+each call gets its own index set, the first one shifted by the call number
+modulo the table size (the scatter probes alternate two sets, idx and
+idx + 1; the JAX scripts shift by an accumulator to defeat constant
+folding).
+`--device cpu` runs the same probes on the host clock, through the kernels'
+plain versions: a CPU number is never a device number.
 
 Importing a module here runs nothing; each probe is a function of its sizes,
 with the JAX script's full widths as defaults.
@@ -85,8 +92,9 @@ def time_calls(fn, n: int, device) -> float:
     return (time.perf_counter() - t0) / n
 
 
-def report(results: dict, label: str, seconds: float, n_queries: int):
+def report(results: dict, label: str, seconds: float, n_queries: int,
+           unit: str = "query"):
     """Print one row and keep its seconds per call in results[label]."""
     print(f"{label:60s} {seconds * 1e3:9.4f} ms/call "
-          f"({seconds / n_queries * 1e9:8.4f} ns/query)", flush=True)
+          f"({seconds / n_queries * 1e9:8.4f} ns/{unit})", flush=True)
     results[label] = seconds

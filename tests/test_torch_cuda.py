@@ -6,21 +6,30 @@ machine without JAX:
 
     python -m pytest tests/test_torch_cuda.py -q -m cuda --noconftest
 
-Tolerance: the scatter-add at relative 1e-5 of the max (f32 atomics sum in
-another order on every run); the gathers exactly (they move values without
-arithmetic).
+Tolerance: the scatter-adds (K1, K5, K6) at relative 1e-5 of the max (f32
+atomics sum in another order on every run); the gathers and the construct
+probes (K7) exactly (they move values, count, or sum terms that add
+exactly).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from laenerf_tpu_torch.ops import construct_probes as cp
 from laenerf_tpu_torch.ops.gather import (grid_probe, grid_probe_plain,
                                           take_lanes, take_lanes_plain,
                                           take_rows, take_rows_plain)
 from laenerf_tpu_torch.ops.hashgrid import HashGridSpec, hashgrid_encode
 from laenerf_tpu_torch.ops.scatter_add import (scatter_add_rows,
                                                scatter_add_rows_plain)
+from laenerf_tpu_torch.ops.sorted_scatter import (build_worklist, sort_stage,
+                                                  tile_scatter,
+                                                  tile_scatter_plain,
+                                                  work_sizes,
+                                                  worklist_scatter,
+                                                  worklist_scatter_plain)
+from laenerf_tpu_torch.perf import bisect_mosaic
 
 REL_TOL = 1e-5
 
@@ -188,3 +197,79 @@ def test_gather_kernels_reject_what_they_do_not_take(cuda):
     empty = take_rows(tbl, torch.zeros((0, 8), dtype=torch.int32,
                                        device=cuda))
     assert empty.shape == (0, 8)
+
+
+def _clustered_with_strays():
+    rng = np.random.RandomState(3)
+    idx = np.concatenate([5000 + rng.randint(0, 300, 20000),
+                          rng.randint(0, 40000, 5000),
+                          [-1, -7, 40960, 50000, 1 << 30]]).astype(np.int32)
+    return idx, rng.randn(idx.shape[0], 8), 40000
+
+
+SORTED_CASES = {
+    "uniform": lambda: _uniform(4, 100000, 50000, 8),
+    "clustered_out_of_range": _clustered_with_strays,
+    "all_one_row": lambda: (np.full(8192, 17, np.int32),
+                            np.random.RandomState(5).randn(8192, 8), 4096),
+    "q0": lambda: (np.zeros(0, np.int32), np.zeros((0, 8)), 4096),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [1024, 2048])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("case", sorted(SORTED_CASES))
+def test_sorted_scatter_kernels_match_plain(cuda, case, dtype, tile):
+    """K5 and K6 on sorted updates and their work list, against their plain
+    versions; rows below 0 or past the tiles are dropped."""
+    idx, g, T = SORTED_CASES[case]()
+    rows = torch.tensor(g, dtype=torch.float32, device=cuda).to(
+        torch.float32 if dtype == "f32" else torch.bfloat16)
+    sizes = work_sizes(idx.shape[0], T, tile, tile)
+    qs, gs, lo = sort_stage(torch.from_numpy(idx).to(cuda), rows, tile,
+                            sizes.n_tiles)
+    before = tile_scatter.launches, worklist_scatter.launches
+    got5 = tile_scatter(qs, gs, lo, tile)
+    wt, wb, _, wreal = build_worklist(lo, tile, sizes.w_cap, sizes.q_blks)
+    got6 = worklist_scatter(qs, gs, wt, wb, wreal, tile, tile, sizes.n_tiles)
+    ref5 = tile_scatter_plain(qs, gs, lo, tile)
+    ref6 = worklist_scatter_plain(qs, gs, wt, wb, wreal, tile, tile,
+                                  sizes.n_tiles)
+    torch.cuda.synchronize()
+    assert (tile_scatter.launches, worklist_scatter.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert got5.shape == got6.shape == (sizes.t_pad, 8)
+    assert torch.equal(ref5, ref6) or _rel_err(ref5, ref6) < REL_TOL
+    assert _rel_err(got5, ref5) < REL_TOL
+    assert _rel_err(got6, ref6) < REL_TOL
+    if case == "q0":
+        assert not got5.any() and not got6.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [None, 1, 2])
+def test_construct_probes_match_plain(cuda, seed):
+    """K7: all eight constructs on the script's inputs and random ones."""
+    for label, _, fn, args in bisect_mosaic.cases(cuda, seed):
+        before = fn.launches
+        got = fn(*args)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1, label
+        assert torch.equal(got, cp.PLAIN[fn](*args)), label
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [8, 16, 128])
+def test_onehot_dot_sums_repeated_rows(cuda, C):
+    """Many one-hot columns on one row, and columns outside the tile, with
+    small integer rows (their sums are exact in any order)."""
+    rng = np.random.RandomState(C)
+    local = rng.randint(-4, 40, (3, 64)).astype(np.int32)
+    local[1] = 7  # every column of tile 1 on row 7
+    g = rng.randint(-8, 9, (3, 64, C))
+    lt = torch.from_numpy(local).to(cuda)
+    gt = torch.tensor(g, dtype=torch.bfloat16, device=cuda)
+    got = cp.onehot_dot(lt, gt, 32)
+    torch.cuda.synchronize()
+    assert torch.equal(got, cp.onehot_dot_plain(lt, gt, 32))
