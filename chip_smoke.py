@@ -33,7 +33,8 @@ Phases, one or more lines each, tagged with the seconds since the start
      k6b), each equal to its plain version and, for the six that have one,
      to the PyTorch call for the same function (torch.equal) on the
      script's inputs and on random ones, timed against both on the random
-     ones.
+     ones; then k6b's kernel on a skewed input (all 1,024 columns of each
+     tile on one row, small integers) equal to its plain version.
   8. probes: the four scatter entry points (microbench_scatter2,
      probe_worklist, probe_worklist2 at --n 12; bisect_mosaic), with the
      launch counts of K5-K7 set to 0 before and read after; each must
@@ -627,6 +628,22 @@ def phase_constructs(card, dev):
                                 f"ops, {bound_by}){extra}; device time "
                                 f"under the profiler: kernel {dev_ms} ms, "
                                 f"library {dev_library_ms} ms ({card})")
+
+    # k6b skewed, a check only: all 1,024 columns of each tile on one row
+    # (one window of each tile holds every column), small integer rows
+    n_tiles, tile, maxu, C = (bisect_mosaic.N_TILES, bisect_mosaic.TILE,
+                              bisect_mosaic.MAXU, 128)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    local = (torch.arange(n_tiles, device=dev, dtype=torch.int32)[:, None]
+             * 146 % tile).expand(-1, maxu).contiguous()
+    g = torch.randint(-8, 9, (n_tiles, maxu, C), generator=gen,
+                      device=dev).bfloat16()
+    if not torch.equal(onehot_dot(local, g, tile),
+                       PLAIN[onehot_dot](local, g, tile)):
+        raise AssertionError("K7 k6b skewed (every column of a tile on one "
+                             "row) differs from its plain version")
+    phase("constructs", f"k6b skewed: {n_tiles} tiles x {maxu} columns, "
+                        f"each tile on one row, C={C}: equal to plain")
     return results
 
 

@@ -20,15 +20,26 @@
 //   k6 probe_onehot_dot       tile k = onehot(local_k) @ g_k: the [tile, maxu]
 //                             one-hot of local_k [maxu] (row r, column m is
 //                             local_k[m] == r) times g_k [maxu, C] bf16, on
-//                             the tensor cores (wmma, f32 accumulation);
-//                             C = 8 (:149) and C = 128 (k6b, :170)
+//                             the tensor cores (mma.sync m16n8k16, f32
+//                             accumulation); C = 8 (:149) and C = 128 (k6b,
+//                             :170)
 //   k7 probe_iota             row r of tile k = r (a 1-D iota, :190)
 //
-// What bounds them on an H100: the launch. The outputs are 256 KB (C = 8) and
-// 4 MB (C = 128), below a microsecond of memory time; k6b's product is 2.1
-// GFLOP at bf16 tensor-core rate, about 2 us. k6 skips the 16-column steps of
-// the product whose one-hot block is all zero (the sum is the same), so its
-// work follows the one-hot's nonzeros, not tile * maxu.
+// What bounds them on an H100: k1-k5 and k7 the launch (8 blocks, outputs of
+// 256 KB). k6 and k6b are bound by bytes: at k6b the 2 MB of bf16 g read,
+// the 4 MB f32 output written and the 32 KB of local, 6.32 MB at 3.35 TB/s =
+// 1.89 us. The dense [tile, maxu] @ [maxu, C] product would be 2.15 GFLOP,
+// but the one-hot has only maxu nonzeros a tile, one per column, so a kernel
+// that scans every (output block, 16-column step) pair spends nearly all its
+// time finding nothing to add. The one-hot kernel instead launches one block
+// per (tile, 32-row window, channel chunk), 256 blocks at k6 and 512 at k6b,
+// and each block buckets the tile's columns once: it reads local_k in chunks
+// of 1,024 columns with 16-byte loads and keeps, in column order (ballot and
+// popc prefix), the columns whose row lies in its window. It gathers the kept
+// columns' g rows into shared memory, builds the one-hot A fragments in
+// registers straight from the kept rows, and runs mma.sync over the kept
+// columns only, 16 at a time. Its work follows the window's columns, not
+// tile * maxu; a window with no columns runs no product and stores zeros.
 //
 // Bulk copies need 16-byte aligned addresses and sizes: the wrappers check
 // the base pointers and that a row of g is a multiple of 16 bytes; k4 copies
@@ -40,7 +51,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
+#include <limits.h>
 #include <stdint.h>
 
 #include "smem.cuh"
@@ -146,52 +157,154 @@ __global__ void dynamic_loop_kernel(const int32_t* __restrict__ lo,
   }
 }
 
-// k6, k6b: each warp owns [M, N] output blocks of the tile and runs the
-// product over maxu in steps of 16 with one-hot A blocks built in shared
-// memory. M x N x 16 is m32n8k16 for C == 8 and m16n16k16 for C % 16 == 0.
-template <int M, int N>
+// k6, k6b (see the header). A block owns the kWin rows [r0, r0 + kWin) of
+// tile k and the channels [c0, c0 + CW) (the last chunk may be narrower; C
+// is 8 or a multiple of 16, so chunks hold whole n8 tiles). Its output is
+// two m16 tiles by CW / 8 n8 tiles; warp w owns m16 tile w & 1 and n8 tiles
+// (w >> 1) + 4 i, in f32 registers for the whole tile k.
+constexpr int kWin = 32;             // output rows a block: one window
+constexpr int kScan = 4 * kThreads;  // columns of local a bucketing chunk
+constexpr int kStage = 128;          // kept columns gathered a product pass
+
+// Two bf16 one-hot entries (row == r) packed as an mma A register, the
+// lower-indexed column in the low half. 0x3F80 is bf16 1.0.
+__device__ __forceinline__ uint32_t onehot_pair(int lo, int hi, int r) {
+  return (lo == r ? 0x3F80u : 0u) | (hi == r ? 0x3F800000u : 0u);
+}
+
+// d += a @ b for one m16n8k16 bf16 tile, f32 accumulation (fragment layouts
+// of the PTX ISA: a row-major 16 x 16, b column-major 16 x 8).
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+template <int CW>
 __global__ void __launch_bounds__(kThreads)
     onehot_dot_kernel(const int32_t* __restrict__ local,
                       const __nv_bfloat16* __restrict__ g,
                       float* __restrict__ out, int tile, int maxu, int C) {
-  using namespace nvcuda;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  __shared__ __align__(32) __nv_bfloat16 a_stage[kWarps][M * 16];
-  int32_t* loc = reinterpret_cast<int32_t*>(smem_raw);  // [maxu]
-  const int64_t k = blockIdx.x;
-  for (int m = threadIdx.x; m < maxu; m += blockDim.x)
-    loc[m] = local[k * maxu + m];
-  __syncthreads();
-  const __nv_bfloat16* gk = g + k * maxu * C;
-  float* ok = out + k * tile * C;
+  constexpr int kNt = CW / 8;                    // n8 tiles of a full chunk
+  constexpr int kAcc = (kNt + 3) / 4;            // n8 tiles a warp owns
+  constexpr int kRowB = CW + 8;                  // bf16 a staged g row
+  constexpr int kRowO = CW + 4;                  // f32 a staged output row
+  __shared__ int32_t cols[kScan];                // kept columns, in order
+  __shared__ int8_t rows[kScan];                 // their rows - r0
+  __shared__ int warp_kept[kWarps];
+  __shared__ __align__(16) uint16_t gs[kStage * kRowB];
+  __shared__ __align__(16) float os[kWin * kRowO];
+
+  const unsigned n_chunk = (C + CW - 1) / CW, n_win = tile / kWin;
+  unsigned b = blockIdx.x;
+  const int chunk = (int)(b % n_chunk);
+  b /= n_chunk;
+  const int r0 = (int)(b % n_win) * kWin;
+  const int64_t k = b / n_win;
+  const int c0 = chunk * CW, cw = min(CW, C - c0);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int n_col = C / N;
-  const __nv_bfloat16 one = __float2bfloat16(1.0f);
-  const __nv_bfloat16 zero = __float2bfloat16(0.0f);
-  for (int blk = warp; blk < (tile / M) * n_col; blk += kWarps) {
-    const int r0 = (blk / n_col) * M, n0 = (blk % n_col) * N;
-    wmma::fragment<wmma::accumulator, M, N, 16, float> acc;
-    wmma::fill_fragment(acc, 0.0f);
-    for (int k0 = 0; k0 < maxu; k0 += 16) {
-      const int v = lane < 16 ? loc[k0 + lane] : -1;
-      if (!__any_sync(0xffffffffu, lane < 16 && v >= r0 && v < r0 + M))
-        continue;  // an all-zero one-hot block adds nothing
-      for (int e = lane; e < M * 16; e += 32)
-        a_stage[warp][e] = loc[k0 + e % 16] == r0 + e / 16 ? one : zero;
-      __syncwarp();
-      wmma::fragment<wmma::matrix_a, M, N, 16, __nv_bfloat16,
-                     wmma::row_major>
-          a;
-      wmma::fragment<wmma::matrix_b, M, N, 16, __nv_bfloat16,
-                     wmma::row_major>
-          b;
-      wmma::load_matrix_sync(a, a_stage[warp], 16);
-      wmma::load_matrix_sync(b, gk + (int64_t)k0 * C + n0, C);
-      wmma::mma_sync(acc, a, b, acc);
-      __syncwarp();
+  const int gid = lane / 4, tig = lane % 4;  // fragment row, column pair
+  const int mt = warp & 1;
+  const int32_t* lk = local + k * maxu;
+  const uint16_t* gk = reinterpret_cast<const uint16_t*>(g) + k * maxu * C
+                       + c0;
+  float acc[kAcc][4] = {};
+
+  for (int base = 0; base < maxu; base += kScan) {
+    // bucket: each thread reads 4 columns and keeps those in the window
+    const int m = base + 4 * threadIdx.x;
+    int4 v = make_int4(-1, -1, -1, -1);
+    if (m < maxu) v = *reinterpret_cast<const int4*>(lk + m);
+    const int vs[4] = {v.x, v.y, v.z, v.w};
+    int keep = 0;
+    #pragma unroll
+    for (int j = 0; j < 4; ++j)
+      keep |= ((unsigned)vs[j] - (unsigned)r0 < (unsigned)kWin) << j;
+    // this thread's place in the warp's list: a prefix of the counts
+    // (0..4), one ballot per bit
+    const int cnt = __popc(keep);
+    const unsigned below = (1u << lane) - 1u;
+    int pos = 0;
+    for (int bit = 0; bit < 3; ++bit)
+      pos += __popc(__ballot_sync(0xffffffffu, (cnt >> bit) & 1) & below)
+             << bit;
+    if (lane == 31) warp_kept[warp] = pos + cnt;
+    __syncthreads();
+    int n = 0;
+    for (int w = 0; w < kWarps; ++w) {
+      if (w == warp) pos += n;
+      n += warp_kept[w];
     }
-    wmma::store_matrix_sync(ok + (int64_t)r0 * C + n0, acc, C,
-                            wmma::mem_row_major);
+    #pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if ((keep >> j) & 1) {
+        cols[pos] = m + j;
+        rows[pos] = (int8_t)(vs[j] - r0);
+        ++pos;
+      }
+    __syncthreads();
+
+    // the product over the kept columns: kStage at a time, 16 a k-step,
+    // the tail padded with zero g rows that no one-hot entry selects
+    for (int s0 = 0; s0 < n; s0 += kStage) {
+      const int ns = min(kStage, (n - s0 + 15) & ~15);
+      const int vecs = cw / 8;  // 16-byte vectors of a row chunk
+      for (int i = threadIdx.x; i < ns * vecs; i += kThreads) {
+        const int e = i / vecs, q = i % vecs;
+        uint4 val = make_uint4(0u, 0u, 0u, 0u);
+        if (s0 + e < n)
+          val = *reinterpret_cast<const uint4*>(
+              gk + (int64_t)cols[s0 + e] * C + 8 * q);
+        *reinterpret_cast<uint4*>(gs + e * kRowB + 8 * q) = val;
+      }
+      __syncthreads();
+      for (int e0 = 0; e0 < ns; e0 += 16) {
+        int r[4];  // rows of k-step columns 2t, 2t + 1, 2t + 8, 2t + 9
+        #pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int e = s0 + e0 + 2 * tig + (j & 1) + 8 * (j >> 1);
+          r[j] = e < n ? rows[e] : -1;
+        }
+        const int ra = 16 * mt + gid, rb = ra + 8;
+        const uint32_t a[4] = {onehot_pair(r[0], r[1], ra),
+                               onehot_pair(r[0], r[1], rb),
+                               onehot_pair(r[2], r[3], ra),
+                               onehot_pair(r[2], r[3], rb)};
+        const uint16_t* bs = gs + (e0 + 2 * tig) * kRowB + gid;
+        #pragma unroll
+        for (int i = 0; i < kAcc; ++i) {
+          const int nt = (warp >> 1) + 4 * i;
+          if (nt >= kNt || 8 * nt >= cw) continue;  // warp-uniform
+          const uint16_t* bp = bs + 8 * nt;
+          mma_bf16(acc[i], a, bp[0] | (uint32_t)bp[kRowB] << 16,
+                   bp[8 * kRowB] | (uint32_t)bp[9 * kRowB] << 16);
+        }
+      }
+      __syncthreads();
+    }
+  }
+
+  // epilogue: fragments to shared memory, then 16-byte row stores
+  #pragma unroll
+  for (int i = 0; i < kAcc; ++i) {
+    const int nt = (warp >> 1) + 4 * i;
+    if (nt >= kNt || 8 * nt >= cw) continue;
+    float* o = os + (16 * mt + gid) * kRowO + 8 * nt + 2 * tig;
+    o[0] = acc[i][0];
+    o[1] = acc[i][1];
+    o[8 * kRowO] = acc[i][2];
+    o[8 * kRowO + 1] = acc[i][3];
+  }
+  __syncthreads();
+  const int q4 = cw / 4;
+  float* ow = out + (k * tile + r0) * C + c0;
+  for (int i = threadIdx.x; i < kWin * q4; i += kThreads) {
+    const int r = i / q4, q = i % q4;
+    *reinterpret_cast<float4*>(ow + (int64_t)r * C + 4 * q) =
+        *reinterpret_cast<const float4*>(os + r * kRowO + 4 * q);
   }
 }
 
@@ -213,14 +326,14 @@ int row_copy(const void* g, const void* lo, void* out, long long n_tiles,
   return (int)cudaGetLastError();
 }
 
-template <int M, int N>
+template <int CW>
 int onehot_dot(const void* local, const void* g, void* out,
                long long n_tiles, int tile, int maxu, int C, void* stream) {
-  const size_t smem = (size_t)maxu * sizeof(int32_t);
-  const int err = set_smem(onehot_dot_kernel<M, N>, smem);
-  if (err != (int)cudaSuccess) return err;
-  onehot_dot_kernel<M, N><<<(unsigned)n_tiles, kThreads, smem,
-                            (cudaStream_t)stream>>>(
+  const long long blocks =
+      n_tiles * (tile / kWin) * (long long)((C + CW - 1) / CW);
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidConfiguration;
+  onehot_dot_kernel<CW><<<(unsigned)blocks, kThreads, 0,
+                          (cudaStream_t)stream>>>(
       (const int32_t*)local, (const __nv_bfloat16*)g, (float*)out, tile,
       maxu, C);
   return (int)cudaGetLastError();
@@ -273,14 +386,15 @@ extern "C" int probe_dynamic_loop(const void* lo, void* out,
   return (int)cudaGetLastError();
 }
 
-// C == 8 or a multiple of 16; tile a multiple of 32; maxu of 16.
+// C == 8 or a multiple of 16; tile a multiple of 32; maxu of 16; local 16-
+// and g 32-byte aligned. C = 8 is one 8-wide chunk, wider C 64-wide chunks.
 extern "C" int probe_onehot_dot(const void* local, const void* g, void* out,
                                 long long n_tiles, int tile, int maxu, int C,
                                 void* stream) {
   if (n_tiles <= 0) return (int)cudaSuccess;
-  if (C % 16 == 0)
-    return onehot_dot<16, 16>(local, g, out, n_tiles, tile, maxu, C, stream);
-  return onehot_dot<32, 8>(local, g, out, n_tiles, tile, maxu, C, stream);
+  if (C == 8)
+    return onehot_dot<8>(local, g, out, n_tiles, tile, maxu, C, stream);
+  return onehot_dot<64>(local, g, out, n_tiles, tile, maxu, C, stream);
 }
 
 extern "C" int probe_iota(void* out, long long n_tiles, int tile, int C,

@@ -18,7 +18,9 @@ them; each writes an f32 [n_tiles * tile, C] output, tile k in rows
   k7  iota_rows(n_tiles, tile, C)            row r of tile k = r
 
 k2-k4 are bulk asynchronous copies into shared memory that complete on an
-mbarrier, k6 runs on the tensor cores. Each wrapper launches its kernel on a
+mbarrier; k6 buckets each tile's columns by 32-row window and runs the
+product over each window's columns on the tensor cores, one block per
+(tile, window, channel chunk). Each wrapper launches its kernel on a
 CUDA tensor, counts the launch in `<fn>.launches`, and runs its plain version
 (`<fn>_plain`) on a CPU tensor. Offsets must lie in range: the plain versions
 raise, the kernels do not check. Every output is exact (copies, integer
@@ -151,8 +153,9 @@ def onehot_dot(local, g, tile: int):
 
     Args:
       local: [n_tiles, maxu] int32 row of each update within its tile;
-        rows outside [0, tile) add nothing.
-      g: [n_tiles, maxu, C] bfloat16 update rows; C == 8 or a multiple of 16.
+        rows outside [0, tile) add nothing; 16-byte aligned.
+      g: [n_tiles, maxu, C] bfloat16 update rows; C == 8 or a multiple of
+        16; 32-byte aligned.
       tile: rows per tile, a multiple of 32; maxu a multiple of 16.
     Returns:
       [n_tiles * tile, C] float32.
@@ -249,8 +252,9 @@ def _check_onehot(local, g, tile):
                         f"matching local {tuple(local.shape)}, got {g.dtype} "
                         f"{tuple(g.shape)}")
     n_tiles, maxu, C = g.shape
-    if g.data_ptr() % 32:
-        raise ValueError("onehot_dot: g must be 32-byte aligned")
+    if g.data_ptr() % 32 or local.data_ptr() % 16:
+        raise ValueError("onehot_dot: g must be 32-byte and local 16-byte "
+                         "aligned")
     if tile % 32 or maxu % 16 or not (C == 8 or C % 16 == 0):
         raise ValueError(f"onehot_dot: want tile % 32 == 0, maxu % 16 == 0 "
                          f"and C == 8 or C % 16 == 0, got {tile}, {maxu}, "

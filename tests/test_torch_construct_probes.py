@@ -170,21 +170,49 @@ def test_construct_matches_pallas_on_random_inputs(label):
                                   _jax_construct(label, args))
 
 
-@pytest.mark.parametrize("width", [8, 128])
-def test_onehot_dot_random_matches_jnp_one_hot_product(width):
-    """k6 on a random one-hot (a tenth of the columns dropped) and random
-    bf16 rows, against the one-hot product in jnp: each output row holds at
-    most one term, so the sums are exact."""
-    label = "k6 onehot+dot C=8" if width == 8 else "k6b onehot+dot C=128"
-    _, _, fn, (local, g, tile) = {c[0]: c for c in bisect_mosaic.cases(
-        "cpu", seed=5)}[label]
-    oh = jax.nn.one_hot(jnp.asarray(local.numpy()), tile, dtype=jnp.float32)
-    gj = jnp.asarray(g.float().numpy())
-    ref = jnp.einsum("kmr,kmc->krc", oh, gj,
+def _onehot_case(case):
+    """(local int32, g f32 of bf16 values, tile) of one one-hot product:
+    for C = case (8, 128), k6's or k6b's random case of bisect_mosaic (a
+    random one-hot, a tenth of the columns dropped: at most one term a row,
+    so the sums are exact); for a named case, an edge of the kernel's window
+    bucketing (32-row windows, 1,024-column scan chunks) with small integer
+    rows, which add exactly in any order."""
+    if isinstance(case, int):
+        label = "k6 onehot+dot C=8" if case == 8 else "k6b onehot+dot C=128"
+        _, _, _, (local, g, tile) = {c[0]: c for c in bisect_mosaic.cases(
+            "cpu", seed=5)}[label]
+        return local.numpy(), g.float().numpy(), tile
+    rng = np.random.RandomState(len(case))
+    n, maxu, tile, C = {"one_row_c128": (2, 1024, 256, 128),
+                        "empty_windows_and_tile": (3, 256, 128, 16),
+                        "maxu_2048_tile_64": (2, 2048, 64, 8)}[case]
+    local = rng.randint(-8, tile + 8, (n, maxu))
+    if case == "one_row_c128":
+        local[:] = [[37], [255]]  # every column of a tile on one row
+    if case == "empty_windows_and_tile":
+        # tile 0 leaves windows 0 and 2 empty; tile 1 lies wholly outside
+        local[0] = rng.choice(np.r_[32:64, 96:128], maxu)
+        local[1] = rng.choice([-1, tile, 5000, -2 ** 31, 2 ** 31 - 1], maxu)
+    g = rng.randint(-8, 9, (n, maxu, C)).astype(np.float32)
+    return local.astype(np.int32), g, tile
+
+
+@pytest.mark.parametrize("case", [8, 128, "one_row_c128",
+                                  "empty_windows_and_tile",
+                                  "maxu_2048_tile_64"])
+def test_onehot_dot_random_matches_jnp_one_hot_product(case):
+    """k6 and k6b on a random one-hot and random bf16 rows, and the edge
+    cases of the kernel's window bucketing (many columns on one row, empty
+    windows, a tile wholly outside, more columns than one scan chunk),
+    against the one-hot product in jnp."""
+    local, g, tile = _onehot_case(case)
+    oh = jax.nn.one_hot(jnp.asarray(local), tile, dtype=jnp.float32)
+    ref = jnp.einsum("kmr,kmc->krc", oh, jnp.asarray(g),
                      precision=jax.lax.Precision.HIGHEST)
-    got = fn(local, g, tile)
+    got = cp.onehot_dot(torch.from_numpy(local),
+                        torch.from_numpy(g).bfloat16(), tile)
     np.testing.assert_array_equal(
-        got.numpy(), np.asarray(ref).reshape(-1, width))
+        got.numpy(), np.asarray(ref).reshape(-1, g.shape[2]))
 
 
 def test_onehot_dot_plain_sums_repeated_rows():
@@ -236,9 +264,12 @@ def test_plain_versions_raise_out_of_range():
                           torch.zeros((1, 16, 24), dtype=torch.bfloat16), 32),
     lambda: cp.onehot_dot(torch.zeros((1, 16), dtype=torch.int32),
                           torch.zeros((1, 16, 8), dtype=torch.bfloat16), 48),
+    lambda: cp.onehot_dot(torch.zeros(17, dtype=torch.int32)[1:].view(1, 16),
+                          torch.zeros((1, 16, 8), dtype=torch.bfloat16), 32),
     lambda: cp.iota_rows(1, 32, 8, device="meta"),
 ], ids=["row_bytes", "short_g", "f64_g", "q_length", "float_lo", "short_lo",
-        "f32_onehot_rows", "onehot_width", "onehot_tile", "meta_device"])
+        "f32_onehot_rows", "onehot_width", "onehot_tile", "onehot_local_align",
+        "meta_device"])
 def test_wrappers_reject_bad_args(call):
     with pytest.raises((TypeError, ValueError)):
         call()

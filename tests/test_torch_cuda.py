@@ -259,17 +259,49 @@ def test_construct_probes_match_plain(cuda, seed):
         assert torch.equal(got, cp.PLAIN[fn](*args)), label
 
 
+def _onehot_case(case):
+    """(local int32, g with small integer values, tile): an int case is
+    C = case at tile 32, its sums of many columns on one row exact in any
+    order; a named case is an edge of the kernel's window bucketing (its
+    32-row windows, 1,024-column scan chunks and 64-wide channel chunks)."""
+    if isinstance(case, int):
+        rng = np.random.RandomState(case)
+        local = rng.randint(-4, 40, (3, 64)).astype(np.int32)
+        local[1] = 7  # every column of tile 1 on row 7
+        return local, rng.randint(-8, 9, (3, 64, case)), 32
+    rng = np.random.RandomState(len(case))
+    n, maxu, tile, C = {"one_row_c128": (3, 1024, 1024, 128),
+                        "empty_windows": (3, 256, 128, 16),
+                        "maxu_2048_tile_64": (2, 2048, 64, 8),
+                        "c16": (4, 512, 256, 16),
+                        "tile_32": (5, 96, 32, 128),
+                        "maxu_1552": (3, 1552, 128, 80)}[case]
+    local = rng.randint(-8, tile + 8, (n, maxu))
+    if case == "one_row_c128":
+        local[:] = [[0], [517], [1023]]  # every column of a tile on one row
+    if case == "empty_windows":
+        # tile 0 leaves windows 0 and 2 empty; tile 1 lies wholly outside
+        local[0] = rng.choice(np.r_[32:64, 96:128], maxu)
+        local[1] = rng.choice([-1, tile, 5000, -2 ** 31, 2 ** 31 - 1], maxu)
+    g = rng.randint(-8, 9, (n, maxu, C))
+    return local.astype(np.int32), g, tile
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("C", [8, 16, 128])
-def test_onehot_dot_sums_repeated_rows(cuda, C):
+@pytest.mark.parametrize("case", [8, 16, 128, "one_row_c128",
+                                  "empty_windows", "maxu_2048_tile_64",
+                                  "c16", "tile_32", "maxu_1552"])
+def test_onehot_dot_sums_repeated_rows(cuda, case):
     """Many one-hot columns on one row, and columns outside the tile, with
-    small integer rows (their sums are exact in any order)."""
-    rng = np.random.RandomState(C)
-    local = rng.randint(-4, 40, (3, 64)).astype(np.int32)
-    local[1] = 7  # every column of tile 1 on row 7
-    g = rng.randint(-8, 9, (3, 64, C))
+    small integer rows (their sums are exact in any order); whole tiles on
+    one row, empty windows, tiles wholly outside, more columns than one scan
+    chunk (and not a multiple of it), C = 16 and C = 80 (a narrower last
+    channel chunk), tile = 32. Exact, one launch a call."""
+    local, g, tile = _onehot_case(case)
     lt = torch.from_numpy(local).to(cuda)
     gt = torch.tensor(g, dtype=torch.bfloat16, device=cuda)
-    got = cp.onehot_dot(lt, gt, 32)
+    before = cp.onehot_dot.launches
+    got = cp.onehot_dot(lt, gt, tile)
     torch.cuda.synchronize()
-    assert torch.equal(got, cp.onehot_dot_plain(lt, gt, 32))
+    assert cp.onehot_dot.launches == before + 1
+    assert torch.equal(got, cp.onehot_dot_plain(lt, gt, tile))
