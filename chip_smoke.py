@@ -28,7 +28,10 @@ Phases, one or more lines each, tagged with the seconds since the start
      and bf16 at 2,048), each within rel 1e-5 of its plain version and of
      index_add_ on the unsorted updates, timed against both and against K1
      on the same unsorted updates, beside its byte bound and its device
-     time under the profiler; the largest per-tile update count.
+     time under the profiler; the largest per-tile update count and the
+     longest run of one row. Then K5 on a skewed input (every update of
+     the heaviest tile moved onto 3 of its rows), untimed, within rel 1e-5
+     of its plain version.
   7. constructs: the eight K7 constructs (perf/bisect_mosaic.py's k1-k7,
      k6b), each equal to its plain version and, for the six that have one,
      to the PyTorch call for the same function (torch.equal) on the
@@ -55,6 +58,7 @@ Imports torch and the port only, never JAX.
 
 import json
 import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -424,6 +428,39 @@ def tensor_bytes(args):
                if isinstance(a, torch.Tensor))
 
 
+def longest_run(qs):
+    """The most updates of one row in a row of sorted rows."""
+    if not qs.numel():
+        return 0
+    return int(torch.unique_consecutive(qs, return_counts=True)[1].max())
+
+
+def k5_skewed(idx, g, tile, n_tiles):
+    """K5 on idx with every update of the heaviest tile moved onto 3 of
+    its rows (first, middle, last, by update number), against its plain
+    version; returns the longest run and the heavy tile's count."""
+    from laenerf_tpu_torch.ops.sorted_scatter import (sort_stage,
+                                                      tile_scatter,
+                                                      tile_scatter_plain)
+
+    tile_of = idx // tile
+    heavy = int(torch.bincount(tile_of.long(), minlength=n_tiles).argmax())
+    mine = tile_of == heavy
+    q = torch.arange(idx.shape[0], device=idx.device, dtype=idx.dtype)
+    three = torch.tensor([0, tile // 2, tile - 1], device=idx.device,
+                         dtype=idx.dtype)
+    skewed = torch.where(mine, heavy * tile + three[q % 3], idx)
+    qs, gs, lo = sort_stage(skewed, g, tile, n_tiles)
+    got, ref = tile_scatter(qs, gs, lo, tile), tile_scatter_plain(qs, gs, lo,
+                                                                  tile)
+    torch.cuda.synchronize()
+    err = rel_err(got, ref)
+    if not err < REL_TOL:
+        raise AssertionError(f"K5 skewed (heaviest tile on 3 rows): rel err "
+                             f"{err}")
+    return longest_run(qs), int(mine.sum()), err
+
+
 def phase_scatter(card, dev):
     """K5 and K6 at the full shapes of rows 10-12 of the kernel table."""
     from laenerf_tpu_torch.ops.scatter_add import scatter_add_rows
@@ -509,13 +546,19 @@ def phase_scatter(card, dev):
                          f"{errs['index_add_']:.2e} vs index_add_ of the "
                          f"unsorted updates; {sizes.n_tiles} tiles, largest "
                          f"{int(cnt.max())} updates, {int((cnt == 0).sum())} "
-                         f"empty; {ms:.4f} ms vs plain {plain_ms:.4f} ms, "
+                         f"empty, longest run {longest_run(qs)}; "
+                         f"{ms:.4f} ms vs plain {plain_ms:.4f} ms, "
                          f"index_add_ {library_ms:.4f} ms, K1 on the unsorted "
                          f"updates {k1_ms:.4f} ms, bound {bound_ms:.4f} ms "
                          f"({n_bytes} B, {bound_by}); device time under the "
                          f"profiler: kernel {dev_t['kernel']} ms, index_add_ "
                          f"{dev_t['library']} ms, K1 {dev_t['k1']} ms "
                          f"({card})")
+        if kernel is tile_scatter:
+            run_len, n_heavy, err = k5_skewed(idx, rows, tile, sizes.n_tiles)
+            phase("scatter", f"{site} skewed: the heaviest tile's {n_heavy} "
+                             f"updates on 3 of its rows (longest run "
+                             f"{run_len}): rel err {err:.2e} vs plain")
     return results
 
 
@@ -839,8 +882,11 @@ def main():
         info = cuda_build.build_info[src]
         regs = [ln.strip() for ln in info["ptxas"].splitlines()
                 if "Used" in ln]
+        spills = sum(map(int, re.findall(r"(\d+) bytes spill stores",
+                                         info["ptxas"])))
         phase("build", f"{src} built in {info['seconds']:.1f} s (nvcc "
-                       f"sm_90a); ptxas: {' | '.join(regs) or 'cached'}")
+                       f"sm_90a); ptxas: {' | '.join(regs) or 'cached'}; "
+                       f"spill stores {spills} B")
     phase("build", f"all sources in {time.perf_counter() - t0:.1f} s")
 
     model_cfg = NeRFConfig(bound=1.0, num_levels=8, level_dim=4,

@@ -5,8 +5,11 @@
 over update rows sorted by destination row, into a table of n_tiles tiles of
 `tile` rows; rows outside the table are dropped.
 
-  tile_scatter      K5: one block per table tile, which walks the tile's
-                    slab [lo[k], lo[k+1]) of the sorted updates
+  tile_scatter      K5: even chunks of the sorted updates, whose runs of
+                    one row are summed in registers and stored (or, at a
+                    chunk's 32-update edge, added with vector atomics) into
+                    a zero-filled output; an update counts only in its
+                    tile's slab [lo[k], lo[k+1])
   worklist_scatter  K6: one block per (table tile wt, update block wb) work
                     item, combined with f32 atomics into a zero-filled output
 
@@ -126,22 +129,24 @@ def tile_scatter(qs, gs, lo, tile: int):
     """out[t, c] = sum of gs[q, c] over q in tile k's slab with qs[q] == t.
 
     Args:
-      qs: [Q] int32 destination rows, sorted.
+      qs: [Q] int32 destination rows, sorted (the kernel stores a row whose
+        kept updates it finds together, so it needs them adjacent; the
+        plain version takes any order).
       gs: [Q, C] float32 or bfloat16 update rows in qs's order.
       lo: [n_tiles + 1] int32 slab starts, non-decreasing in [0, Q]: tile k
         reads updates [lo[k], lo[k+1]) and keeps those whose row lies in
         [k * tile, (k + 1) * tile) (sort_stage gives lo).
       tile: rows per tile.
     Returns:
-      [n_tiles * tile, C] float32 (every tile written; no zero-fill).
+      [n_tiles * tile, C] float32, zero where nothing was added.
     """
     if on_cpu("tile_scatter", qs, gs, lo):
         return tile_scatter_plain(qs, gs, lo, tile)
     n_tiles = _check_tile(qs, gs, lo, tile)
     Q, C = gs.shape
-    out = torch.empty((n_tiles * tile, C), dtype=torch.float32,
+    out = torch.zeros((n_tiles * tile, C), dtype=torch.float32,
                       device=gs.device)
-    if n_tiles:
+    if n_tiles and Q and C:
         launch(_SOURCE, f"tile_scatter_{_DTYPES[gs.dtype]}",
                [P, P, P, P, I64, I64, I32, I32], qs, gs, lo, out, Q, n_tiles,
                tile, C)

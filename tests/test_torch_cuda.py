@@ -237,8 +237,9 @@ def test_sorted_scatter_kernels_match_plain(cuda, case, dtype, tile):
     ref6 = worklist_scatter_plain(qs, gs, wt, wb, wreal, tile, tile,
                                   sizes.n_tiles)
     torch.cuda.synchronize()
+    # K5 has nothing to launch without updates (its output is the zero-fill)
     assert (tile_scatter.launches, worklist_scatter.launches) == (
-        before[0] + 1, before[1] + 1)
+        before[0] + (idx.shape[0] > 0), before[1] + 1)
     assert got5.shape == got6.shape == (sizes.t_pad, 8)
     assert torch.equal(ref5, ref6) or _rel_err(ref5, ref6) < REL_TOL
     assert _rel_err(got5, ref5) < REL_TOL
@@ -305,3 +306,104 @@ def test_onehot_dot_sums_repeated_rows(cuda, case):
     torch.cuda.synchronize()
     assert cp.onehot_dot.launches == before + 1
     assert torch.equal(got, cp.onehot_dot_plain(lt, gt, tile))
+
+
+K5_CHUNK = 2048  # updates a K5 block takes (csrc/sorted_scatter.cu kChunk)
+
+
+def _k5_rows(case, rng):
+    """(rows [Q] int32, unsorted, T, tile, C) of a K5 edge case."""
+    if case == "heavy_tile":
+        # 100,000 updates on 3 rows of tile 7: its slab spans ~50 blocks
+        heavy = 7 * 1024 + rng.choice([0, 500, 1023], 100000)
+        return np.concatenate([heavy, rng.randint(0, 200000, 60000)]), \
+            200000, 1024, 8
+    if case.startswith("chunk"):
+        # a run boundary at exactly K5_CHUNK + o, and a run of 700 updates
+        # across the second block boundary
+        o = {"chunk-1": -1, "chunk": 0, "chunk+1": 1}[case]
+        head = np.repeat(np.arange(K5_CHUNK), 3)[:K5_CHUNK + o]
+        mid = np.full(2 * K5_CHUNK - 350 - head.shape[0], 9000)
+        return np.concatenate([head, mid, np.full(700, 9001),
+                               9002 + rng.randint(0, 3000, 2000)]), \
+            12288, 1024, 8
+    C = int(case[1:])  # "c<C>": many short runs and some long ones
+    rows = np.concatenate([rng.randint(0, 30000, 20000),
+                           np.repeat(rng.randint(0, 30000, 8), 300)])
+    return rows, 30000, 512, C
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("case", ["heavy_tile", "chunk-1", "chunk",
+                                  "chunk+1", "c1", "c3", "c8", "c16", "c56"])
+def test_tile_scatter_matches_plain(cuda, case, dtype):
+    """K5 on a heavy tile whose slab spans many blocks, run boundaries at
+    exactly one block's end and a run across the next, and C = 1, 3 (no
+    16-byte loads), 8, 16 and 56 (several channel groups); one launch a
+    call."""
+    rng = np.random.RandomState(len(case))
+    rows, T, tile, C = _k5_rows(case, rng)
+    g = torch.tensor(rng.randn(rows.shape[0], C), dtype=torch.float32,
+                     device=cuda).to(torch.float32 if dtype == "f32"
+                                     else torch.bfloat16)
+    n_tiles = -(-T // tile)
+    qs, gs, lo = sort_stage(torch.from_numpy(rows.astype(np.int32)).to(cuda),
+                            g, tile, n_tiles)
+    before = tile_scatter.launches
+    got = tile_scatter(qs, gs, lo, tile)
+    torch.cuda.synchronize()
+    assert tile_scatter.launches == before + 1
+    assert got.shape == (n_tiles * tile, C)
+    assert _rel_err(got, tile_scatter_plain(qs, gs, lo, tile)) < REL_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("offset", [1, 2, 4])
+def test_tile_scatter_on_misaligned_views(cuda, offset, dtype):
+    """Contiguous views whose rows start `offset` elements into their
+    storage, so 16-byte loads are ruled out (narrower ones where the offset
+    allows); also qs and lo views."""
+    rng = np.random.RandomState(offset)
+    tdt = torch.float32 if dtype == "f32" else torch.bfloat16
+    rows = np.sort(np.concatenate([rng.randint(0, 20000, 30000),
+                                   np.full(900, 4321)])).astype(np.int32)
+    Q, C, tile = rows.shape[0], 8, 1024
+    flat = torch.tensor(rng.randn(Q * C + offset), dtype=torch.float32,
+                        device=cuda).to(tdt)
+    gs = flat[offset:].view(Q, C)
+    qs = torch.from_numpy(np.concatenate([[0], rows]).astype(np.int32)).to(
+        cuda)[1:]
+    lo = sort_stage(qs, gs, tile, 20)[2]
+    lo = torch.cat([lo[:1], lo])[1:]
+    assert gs.is_contiguous() and gs.storage_offset() == offset
+    before = tile_scatter.launches
+    got = tile_scatter(qs, gs, lo, tile)
+    torch.cuda.synchronize()
+    assert tile_scatter.launches == before + 1
+    assert _rel_err(got, tile_scatter_plain(qs, gs, lo, tile)) < REL_TOL
+
+
+@pytest.mark.cuda
+def test_tile_scatter_drops_rows_outside_their_tile(cuda):
+    """The CPU case of tests/test_torch_sorted_scatter.py on the card: a
+    hand-made lo puts row 40 in tile 0's slab, where it is dropped, as are
+    rows below 0 and past the table; Q = 0 launches nothing."""
+    qs = torch.tensor([-3, 0, 5, 40, 63, 64, 90], dtype=torch.int32,
+                      device=cuda)
+    g = torch.arange(14, dtype=torch.float32, device=cuda).reshape(7, 2)
+    lo = torch.tensor([1, 4, 5], dtype=torch.int32, device=cuda)
+    ref = torch.zeros((64, 2), device=cuda)
+    ref[0], ref[5], ref[63] = g[1], g[2], g[4]
+    before = tile_scatter.launches
+    got = tile_scatter(qs, g, lo, 32)
+    torch.cuda.synchronize()
+    assert tile_scatter.launches == before + 1
+    assert torch.equal(got, ref)
+    assert torch.equal(tile_scatter_plain(qs, g, lo, 32), ref)
+    empty = tile_scatter(qs[:0], g[:0], torch.zeros(3, dtype=torch.int32,
+                                                    device=cuda), 32)
+    torch.cuda.synchronize()
+    assert tile_scatter.launches == before + 1
+    assert empty.shape == (64, 2) and not empty.any()

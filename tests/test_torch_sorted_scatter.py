@@ -35,7 +35,7 @@ from laenerf_tpu_torch.ops.sorted_scatter import (build_worklist, sort_stage,
                                                   work_sizes,
                                                   worklist_scatter)
 from laenerf_tpu_torch.perf import (microbench_scatter2, probe_worklist,
-                                    probe_worklist2)
+                                    probe_worklist2, tile_scatter_split)
 from laenerf_tpu_torch.perf.scatter_inputs import FULL, SMALL, make_inputs
 
 REL_TOL = 1e-5
@@ -247,10 +247,24 @@ def test_sort_stage_matches_jax(small_inputs):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
 
 
-def test_tile_scatter_matches_pallas(small_inputs):
+def _skewed(idx, g):
+    """The small inputs plus 1,500 updates on 3 rows of tile 5: that tile
+    then holds more than four MAXU sub-blocks, in runs of 400-600."""
+    rows = 5 * TILE + np.repeat([3, 100, TILE - 1], [500, 600, 400])
+    extra = np.random.RandomState(9).randn(rows.shape[0], C)
+    return (np.concatenate([idx, rows]).astype(np.int32),
+            np.concatenate([g, extra]).astype(np.float32))
+
+
+@pytest.mark.parametrize("case", ["script", "skewed"])
+def test_tile_scatter_matches_pallas(small_inputs, case):
     """Row 10: sort + _scatter_tile_kernel against sort_stage + K5's
-    plain version."""
-    idx, g = small_inputs
+    plain version, on the script's inputs and on a skewed set whose heavy
+    tile takes the Pallas kernel through more than four sub-blocks."""
+    idx, g = small_inputs if case == "script" else _skewed(*small_inputs)
+    if case == "skewed":
+        cnt = np.bincount(idx // TILE)
+        assert cnt.max() > 4 * MAXU
     ref = _jax_s1(idx, g)
     got = tile_scatter(*sort_stage(torch.from_numpy(idx),
                                    torch.from_numpy(g), TILE, N_TILES), TILE)
@@ -395,8 +409,10 @@ def test_s2_drops_539856_updates_at_full_shape():
 
 
 @pytest.mark.parametrize("script,rows", [
-    (microbench_scatter2, 4), (probe_worklist, 6), (probe_worklist2, 6)],
-    ids=["microbench_scatter2", "probe_worklist", "probe_worklist2"])
+    (microbench_scatter2, 4), (probe_worklist, 6), (probe_worklist2, 6),
+    (tile_scatter_split, 3)],
+    ids=["microbench_scatter2", "probe_worklist", "probe_worklist2",
+         "tile_scatter_split"])
 def test_scatter_probe_main_on_cpu(script, rows, capsys):
     """Each entry point runs end to end at the --small shapes on the CPU,
     prints the host line and one row per probe of the JAX script."""
