@@ -30,8 +30,9 @@ Phases, one or more lines each, tagged with the seconds since the start
      on the same unsorted updates, beside its byte bound and its device
      time under the profiler; the largest per-tile update count and the
      longest run of one row. Then K5 on a skewed input (every update of
-     the heaviest tile moved onto 3 of its rows), untimed, within rel 1e-5
-     of its plain version.
+     the heaviest tile moved onto 3 of its rows), and K6 on a hand-made
+     work list (the heaviest tile's items, one of them listed twice),
+     untimed, each within rel 1e-5 of its plain version.
   7. constructs: the eight K7 constructs (perf/bisect_mosaic.py's k1-k7,
      k6b), each equal to its plain version and, for the six that have one,
      to the PyTorch call for the same function (torch.equal) on the
@@ -461,6 +462,27 @@ def k5_skewed(idx, g, tile, n_tiles):
     return longest_run(qs), int(mine.sum()), err
 
 
+def k6_hand_made(qs, gs, wt, wb, wreal, tile, maxu, n_tiles):
+    """K6 on the heaviest tile's items alone, its middle item listed
+    twice (so its updates add twice), against its plain version; returns
+    the item count and the rel err."""
+    from laenerf_tpu_torch.ops.sorted_scatter import (worklist_scatter,
+                                                      worklist_scatter_plain)
+
+    real = wreal != 0
+    heavy = int(torch.bincount(wt[real].long(), minlength=n_tiles).argmax())
+    mine = torch.nonzero(real & (wt == heavy)).flatten()
+    pick = torch.cat([mine, mine[len(mine) // 2:][:1]])
+    args = (qs, gs, wt[pick], wb[pick], wreal[pick], tile, maxu, n_tiles)
+    got, ref = worklist_scatter(*args), worklist_scatter_plain(*args)
+    torch.cuda.synchronize()
+    err = rel_err(got, ref)
+    if not err < REL_TOL:
+        raise AssertionError(f"K6 hand-made list (the heaviest tile's items, "
+                             f"one twice): rel err {err}")
+    return len(mine), err
+
+
 def phase_scatter(card, dev):
     """K5 and K6 at the full shapes of rows 10-12 of the kernel table."""
     from laenerf_tpu_torch.ops.scatter_add import scatter_add_rows
@@ -559,6 +581,11 @@ def phase_scatter(card, dev):
             phase("scatter", f"{site} skewed: the heaviest tile's {n_heavy} "
                              f"updates on 3 of its rows (longest run "
                              f"{run_len}): rel err {err:.2e} vs plain")
+        else:
+            n_items, err = k6_hand_made(*args)
+            phase("scatter", f"{site} hand-made list: the heaviest tile's "
+                             f"{n_items} items, one listed twice: rel err "
+                             f"{err:.2e} vs plain")
     return results
 
 

@@ -4,13 +4,14 @@
 // k6b) to find which one the TPU compiler refused: the constructs that the
 // sorted scatter-add (perf/microbench_scatter2.py:137) is built from. Each
 // entry point here is the Hopper counterpart of one of them. Every one writes
-// an f32 [n_tiles * tile, C] output, one block per tile k:
+// an f32 [n_tiles * tile, C] output, tile k in rows [k*tile, (k+1)*tile):
 //
 //   k1 probe_prefetch_write   tile k = lo[k]: the block reads its own index
 //                             (scalar prefetch, bisect_mosaic.py:28)
 //   k2 probe_static_copy      tile k = g[0 : tile] by a bulk asynchronous
 //                             copy into shared memory that completes on an
-//                             mbarrier (static 2-D DMA, :46)
+//                             mbarrier, then a bulk copy out (static 2-D
+//                             DMA, :46)
 //   k3 probe_dynamic_copy     tile k = g[lo[k] : lo[k] + tile], the same copy
 //                             at an offset read from memory (:70)
 //   k4 probe_copy_1d          row r of tile k = q[lo[k] + r], a 1-D int32
@@ -25,9 +26,15 @@
 //                             :170)
 //   k7 probe_iota             row r of tile k = r (a 1-D iota, :190)
 //
-// What bounds them on an H100: k1-k5 and k7 the launch (8 blocks, outputs of
-// 256 KB). k6 and k6b are bound by bytes: at k6b the 2 MB of bf16 g read,
-// the 4 MB f32 output written and the 32 KB of local, 6.32 MB at 3.35 TB/s =
+// What bounds them on an H100: k1-k5 and k7 the launch (outputs of 256 KB).
+// k1, k4, k5 and k7 launch one block per tile, 8 blocks on 132 SMs. k2 and
+// k3 spread each tile over the card: a tile of g is one contiguous run of
+// tile * C * 4 bytes, so one block per (tile, 2 KB slice of it), 128 blocks
+// at the probe's shape, whose one thread starts a bulk load of the slice
+// into shared memory on an mbarrier and, once it lands, a bulk store of the
+// same bytes to the output; no thread loads or stores a float itself. k6
+// and k6b are bound by bytes: at k6b the 2 MB of bf16 g read, the 4 MB f32
+// output written and the 32 KB of local, 6.32 MB at 3.35 TB/s =
 // 1.89 us. The dense [tile, maxu] @ [maxu, C] product would be 2.15 GFLOP,
 // but the one-hot has only maxu nonzeros a tile, one per column, so a kernel
 // that scans every (output block, 16-column step) pair spends nearly all its
@@ -42,9 +49,10 @@
 // tile * maxu; a window with no columns runs no product and stores zeros.
 //
 // Bulk copies need 16-byte aligned addresses and sizes: the wrappers check
-// the base pointers and that a row of g is a multiple of 16 bytes; k4 copies
-// the 16-byte aligned window around q[lo[k] : lo[k] + tile], which stays
-// inside q when q's length is a multiple of 4. Offsets must lie in range (the
+// the base pointers and that a row of g is a multiple of 16 bytes (so are a
+// tile and each slice of it); k4 copies the 16-byte aligned window around
+// q[lo[k] : lo[k] + tile], which stays inside q when q's length is a
+// multiple of 4. Offsets must lie in range (the
 // plain versions raise, the kernels do not check). Plain C interface, loaded
 // with ctypes. Each kernel runs on the caller's stream and each entry point
 // returns cudaGetLastError() after the launch.
@@ -87,6 +95,20 @@ __device__ __forceinline__ void bulk_load(void* smem, const void* gmem,
       : "memory");
 }
 
+// One thread: start the copy smem -> gmem as a bulk group and wait until it
+// has read all of smem (the block may then exit; the writes land anyway).
+__device__ __forceinline__ void bulk_store(void* gmem, const void* smem,
+                                           uint32_t bytes) {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+          gmem),
+      "r"(smem_addr(smem)), "r"(bytes)
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   uint32_t done = 0;
   while (!done) {
@@ -108,21 +130,28 @@ __global__ void prefetch_write_kernel(const int32_t* __restrict__ lo,
   for (int i = threadIdx.x; i < tile * C; i += blockDim.x) dst[i] = v;
 }
 
-// k2 (lo == nullptr: offset 0) and k3 (offset lo[k]): rows of g via smem.
+constexpr int kSlice = 2048;  // k2, k3: bytes of a tile a block copies
+
+// k2 (lo == nullptr: offset 0) and k3 (offset lo[k]): block b copies slice
+// b % slices of tile k = b / slices, the bytes [off, off + kSlice) of the
+// tile's tile_bytes (the last slice may be shorter), through shared memory.
+// One thread a block.
 __global__ void row_copy_kernel(const float* __restrict__ g,
                                 const int32_t* __restrict__ lo,
-                                float* __restrict__ out, int tile, int C) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
+                                float* __restrict__ out, int64_t tile_bytes,
+                                int64_t row_bytes, unsigned slices) {
+  __shared__ __align__(128) unsigned char buf[kSlice];
   __shared__ __align__(8) uint64_t bar;
-  float* scr = reinterpret_cast<float*>(smem_raw);
-  const int64_t start = lo == nullptr ? 0 : (int64_t)lo[blockIdx.x];
-  if (threadIdx.x == 0) mbar_init(&bar, 1);
-  __syncthreads();
-  if (threadIdx.x == 0)
-    bulk_load(scr, g + start * C, (uint32_t)(tile * C * sizeof(float)), &bar);
-  mbar_wait(&bar, 0);
-  float* dst = out + (int64_t)blockIdx.x * tile * C;
-  for (int i = threadIdx.x; i < tile * C; i += blockDim.x) dst[i] = scr[i];
+  const unsigned k = blockIdx.x / slices;
+  const int64_t off = (int64_t)(blockIdx.x % slices) * kSlice;
+  const uint32_t bytes =
+      (uint32_t)(tile_bytes - off < kSlice ? tile_bytes - off : kSlice);
+  const int64_t start = lo == nullptr ? 0 : (int64_t)lo[k];
+  mbar_init(&bar, 1);
+  bulk_load(buf, reinterpret_cast<const char*>(g) + start * row_bytes + off,
+            bytes, &bar);
+  mbar_wait(&bar, 0);  // a single use: phase 0
+  bulk_store(reinterpret_cast<char*>(out) + k * tile_bytes + off, buf, bytes);
 }
 
 __global__ void copy_1d_kernel(const int32_t* __restrict__ q,
@@ -317,12 +346,14 @@ __global__ void iota_kernel(float* __restrict__ out, int tile, int C) {
 int row_copy(const void* g, const void* lo, void* out, long long n_tiles,
              int tile, int C, void* stream) {
   if (n_tiles <= 0) return (int)cudaSuccess;
-  const size_t smem = (size_t)tile * C * sizeof(float);
-  const int err = set_smem(row_copy_kernel, smem);
-  if (err != (int)cudaSuccess) return err;
-  row_copy_kernel<<<(unsigned)n_tiles, kThreads, smem,
+  const int64_t row_bytes = (int64_t)C * sizeof(float);
+  const int64_t tile_bytes = tile * row_bytes;
+  const long long slices = (tile_bytes + kSlice - 1) / kSlice;
+  if (n_tiles * slices > INT_MAX) return (int)cudaErrorInvalidConfiguration;
+  row_copy_kernel<<<(unsigned)(n_tiles * slices), 1, 0,
                     (cudaStream_t)stream>>>(
-      (const float*)g, (const int32_t*)lo, (float*)out, tile, C);
+      (const float*)g, (const int32_t*)lo, (float*)out, tile_bytes, row_bytes,
+      (unsigned)slices);
   return (int)cudaGetLastError();
 }
 

@@ -1,5 +1,5 @@
 // Shared-memory set-up for the kernels' launchers (included by
-// sorted_scatter.cu and construct_probes.cu).
+// construct_probes.cu).
 
 #pragma once
 

@@ -58,11 +58,23 @@
 // zero-fill and kernel move about 210.5 MB (62.8 us) against the
 // function's 169.5 MB.
 //
-// K6 keeps the first port's form: one block per work item accumulates its
-// updates with f32 atomics into a [tile, C] f32 tile in shared memory
-// (accumulate_run), then adds the rows it touched into a zero-filled output
-// with f32 atomicAdd (the TPU's wfirst zero-fill is the wrapper's
-// torch.zeros). Items with wreal == 0 do nothing.
+// K6 shares K5's warp body (reduce_span) and differs in how a warp finds
+// its updates, which it keeps, and how it writes:
+//   - The work list is the grid: one block per item w, its maxu updates
+//     [wb[w] * maxu, wb[w] * maxu + maxu) cut at Q, each warp one eighth
+//     of them in whole windows of 32. Items hold at most maxu updates, so
+//     the grid is even: the heaviest tile spreads over ~139 items.
+//   - Membership: update q of row r counts in item w iff r lies in tile
+//     wt[w]; an item with wreal[w] == 0 or wt[w] outside the tiles does
+//     nothing. A window without a kept update is skipped, and only the kept
+//     updates' rows are read: the items of a block each read its qs, but
+//     each row only once.
+//   - Every run is added with float4 (float2, float) atomicAdd into the
+//     zero-filled output, never stored: K6 takes any work list (the plain
+//     version counts an update once for every real item that covers it, so
+//     a duplicated item adds twice, and qs need not be sorted), so a run
+//     inside a window need not be its row's whole sum.
+// No shared memory, so no limit on the tile size.
 //
 // The sum order of the atomics varies from run to run, so results match a
 // sequential sum only to f32 rounding. Update rows come in as f32 or bf16;
@@ -74,11 +86,16 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "smem.cuh"
+#include <type_traits>
 
 namespace {
 
-constexpr int kThreads = 512;  // K6
+constexpr int kRunThreads = 256;  // 8 warps a block
+constexpr int kWarps = kRunThreads / 32;
+constexpr int kWarpSpan = 256;     // K5: consecutive updates a warp reduces
+constexpr int kChunk = kWarps * kWarpSpan;  // K5: updates a block
+constexpr int kGroup = 8;          // channels a lane holds at a time
+constexpr unsigned kAll = 0xffffffffu;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -89,36 +106,6 @@ __device__ __forceinline__ int64_t clamp64(int64_t v, int64_t lo,
                                            int64_t hi) {
   return v < lo ? lo : (v > hi ? hi : v);
 }
-
-// Adds updates [begin, end) whose row lies in [base, base + tile) into the
-// shared f32 tile acc[tile * C], one thread per (update, channel) element,
-// and marks the rows it touched when `touched` is given.
-template <typename T>
-__device__ void accumulate_run(const int32_t* __restrict__ qs,
-                               const T* __restrict__ gs, int64_t begin,
-                               int64_t end, int64_t base, int tile, int C,
-                               float* acc, unsigned char* touched) {
-  const int64_t n = (end - begin) * C;
-  for (int64_t i = threadIdx.x; i < n; i += blockDim.x) {
-    const int64_t u = i / C;
-    const int c = (int)(i - u * C);
-    const int64_t q = begin + u;
-    const int64_t local = (int64_t)qs[q] - base;
-    if (local < 0 || local >= tile) continue;
-    atomicAdd(acc + local * C + c, to_f32(gs[q * C + c]));
-    if (touched != nullptr && c == 0) touched[local] = 1;
-  }
-}
-
-__device__ void zero_shared(float* acc, int n) {
-  for (int i = threadIdx.x; i < n; i += blockDim.x) acc[i] = 0.0f;
-}
-
-constexpr int kRunThreads = 256;  // K5: 8 warps a block
-constexpr int kWarpSpan = 256;     // consecutive updates a warp reduces
-constexpr int kChunk = kRunThreads / 32 * kWarpSpan;  // updates a block
-constexpr int kGroup = 8;          // channels a lane holds at a time
-constexpr unsigned kAll = 0xffffffffu;
 
 template <int B>
 struct Raw;  // an unsigned type of B bytes
@@ -151,17 +138,17 @@ struct Floats<4> {
 };
 
 // v = channels [c0, c0 + kGroup) of update row q, read V elements at a
-// time; channels at or past C, and rows that are not live, read as 0. V
+// time; channels at or past C, and rows that are not read, read as 0. V
 // divides C and the row pointer is aligned to V elements (the launcher
 // checks), so a V-wide piece lies wholly inside or wholly past C.
 template <typename T, int V>
 __device__ __forceinline__ void load_group(const T* __restrict__ gs,
                                            int64_t q, int C, int c0,
-                                           bool live, float (&v)[kGroup]) {
+                                           bool read, float (&v)[kGroup]) {
   using R = typename Raw<V * sizeof(T)>::type;
 #pragma unroll
   for (int i = 0; i < kGroup; i += V) {
-    if (live && c0 + i < C) {
+    if (read && c0 + i < C) {
       const R raw = __ldcs(reinterpret_cast<const R*>(gs + q * C + c0 + i));
       const T* t = reinterpret_cast<const T*>(&raw);
 #pragma unroll
@@ -193,47 +180,70 @@ __device__ __forceinline__ void write_group(float* dst, int left, bool add,
   }
 }
 
-// Update q of row r counts iff r lies in the table and q in the slab of r's
-// tile.
-__device__ __forceinline__ bool kept(int r, int64_t q,
-                                     const int32_t* __restrict__ lo,
-                                     int64_t rows, int tile) {
-  if (r < 0 || (int64_t)r >= rows) return false;
-  const int k = r / tile;
-  return (int64_t)__ldg(lo + k) <= q && q < (int64_t)__ldg(lo + k + 1);
-}
+// K5: update q of row r counts iff r lies in the table and q in the slab of
+// r's tile. qs is sorted and the slabs are disjoint, so each update is read
+// once (streamed, its row read before membership is known: nearly every
+// update is kept) and a run inside its window is its row's whole sum, which
+// is stored.
+struct SlabRule {
+  const int32_t* lo;
+  int64_t rows;
+  int tile;
+  static constexpr bool kSorted = true;
+  __device__ __forceinline__ bool keep(int r, int64_t q) const {
+    if (r < 0 || (int64_t)r >= rows) return false;
+    const int k = r / tile;
+    return (int64_t)__ldg(lo + k) <= q && q < (int64_t)__ldg(lo + k + 1);
+  }
+};
 
-// One block per kChunk consecutive updates, one warp per kWarpSpan of them,
-// 32 at a time: lane i holds update base + i. Equal keys of neighbouring
-// lanes are summed by a segmented scan and the run's last lane writes the
-// sum into out (zero-filled by the caller), kGroup channels at a time.
-template <typename T, int V>
-__global__ void __launch_bounds__(kRunThreads)
-    tile_scatter_kernel(const int32_t* __restrict__ qs,
-                        const T* __restrict__ gs,
-                        const int32_t* __restrict__ lo,
-                        float* __restrict__ out, int64_t Q, int64_t n_tiles,
-                        int tile, int C) {
+// K6: update q of row r counts in an item iff r lies in the item's tile
+// [r0, r1). Any work list is taken: the items of a block all read its qs
+// (kept in cache), each reads only its kept rows, and every run is added.
+struct ItemRule {
+  int64_t r0, r1;
+  static constexpr bool kSorted = false;
+  __device__ __forceinline__ bool keep(int r, int64_t) const {
+    return r >= r0 && r < r1;
+  }
+};
+
+// One warp reduces updates [w0, w1), 32 at a time: lane i holds update
+// base + i, its key the row where rule keeps it, else -1. Equal keys of
+// neighbouring lanes form a run; a segmented scan sums it into its last
+// lane, which writes the sum into out (zero-filled by the caller), kGroup
+// channels at a time: added with atomics, or stored where qs is sorted and
+// the run touches neither edge of the window.
+template <typename T, int V, typename Rule>
+__device__ __forceinline__ void reduce_span(const int32_t* __restrict__ qs,
+                                            const T* __restrict__ gs,
+                                            float* __restrict__ out,
+                                            int64_t w0, int64_t w1, int C,
+                                            const Rule& rule) {
   constexpr int W = V < 4 ? V : 4;  // floats a write takes
   const int lane = threadIdx.x & 31;
-  const int64_t w0 = (int64_t)blockIdx.x * kChunk
-                     + (int64_t)(threadIdx.x >> 5) * kWarpSpan;
-  const int64_t w1 = w0 + kWarpSpan < Q ? w0 + kWarpSpan : Q;
-  const int64_t rows = n_tiles * tile;
   for (int64_t base = w0; base < w1; base += 32) {  // warp-uniform
     const int64_t q = base + lane;
     const bool live = q < w1;
-    const int r = live ? __ldcs(qs + q) : -1;
+    int r = -1;
+    if (live) r = Rule::kSorted ? __ldcs(qs + q) : __ldg(qs + q);
     float v[kGroup];
-    load_group<T, V>(gs, q, C, 0, live, v);  // in flight with lo's reads
-    const int key = live && kept(r, q, lo, rows, tile) ? r : -1;
+    // K5 reads the row in flight with lo's reads
+    if constexpr (Rule::kSorted) load_group<T, V>(gs, q, C, 0, live, v);
+    const int key = live && rule.keep(r, q) ? r : -1;
+    if (!__any_sync(kAll, key >= 0)) continue;
+    const bool read = Rule::kSorted ? live : key >= 0;
+    if constexpr (!Rule::kSorted) load_group<T, V>(gs, q, C, 0, read, v);
     const int prev = __shfl_up_sync(kAll, key, 1);
     const int next = __shfl_down_sync(kAll, key, 1);
     const bool tail = lane == 31 || next != key;
     const unsigned heads = __ballot_sync(kAll, lane == 0 || prev != key);
     // the run's first lane: the highest head at or below this lane
     const int start = 31 - __clz(heads & (kAll >> (31 - lane)));
-    const int longest = __reduce_max_sync(kAll, lane - start + 1);
+    // the longest kept run (runs of dropped updates are never written)
+    const int longest = __reduce_max_sync(kAll,
+                                          key >= 0 ? lane - start + 1 : 1);
+    const bool add = !Rule::kSorted || start == 0 || lane == 31;
     for (int c0 = 0;;) {
       // after the steps of d < longest, lane i holds the sum over
       // [max(start, i - 2d + 1), i], the whole run at its last lane
@@ -244,22 +254,35 @@ __global__ void __launch_bounds__(kRunThreads)
           if (lane - d >= start) v[j] += up;
         }
       }
-      // qs is sorted, so a row's kept updates are adjacent: a run that
-      // neither starts at lane 0 nor ends at lane 31 is all of its row and
-      // is stored; a run at an edge may go on in another window and is added
       if (tail && key >= 0) {
-        write_group<W>(out + (int64_t)key * C + c0, C - c0,
-                       start == 0 || lane == 31, v);
+        write_group<W>(out + (int64_t)key * C + c0, C - c0, add, v);
       }
       c0 += kGroup;
       if (c0 >= C) break;
-      load_group<T, V>(gs, q, C, c0, live, v);
+      load_group<T, V>(gs, q, C, c0, read, v);
     }
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+// K5: one block per kChunk consecutive updates, one warp per kWarpSpan.
+template <typename T, int V>
+__global__ void __launch_bounds__(kRunThreads)
+    tile_scatter_kernel(const int32_t* __restrict__ qs,
+                        const T* __restrict__ gs,
+                        const int32_t* __restrict__ lo,
+                        float* __restrict__ out, int64_t Q, int64_t n_tiles,
+                        int tile, int C) {
+  const int64_t w0 = (int64_t)blockIdx.x * kChunk
+                     + (int64_t)(threadIdx.x >> 5) * kWarpSpan;
+  const int64_t w1 = w0 + kWarpSpan < Q ? w0 + kWarpSpan : Q;
+  reduce_span<T, V>(qs, gs, out, w0, w1, C,
+                    SlabRule{lo, n_tiles * tile, tile});
+}
+
+// K6: one block per work item; warp i takes the i-th eighth of the item's
+// updates, in whole windows of 32.
+template <typename T, int V>
+__global__ void __launch_bounds__(kRunThreads)
     worklist_scatter_kernel(const int32_t* __restrict__ qs,
                             const T* __restrict__ gs,
                             const int32_t* __restrict__ wt,
@@ -270,30 +293,30 @@ __global__ void __launch_bounds__(kThreads)
   const int64_t w = blockIdx.x;
   const int64_t t = wt[w];
   if (wreal[w] == 0 || t < 0 || t >= n_tiles) return;  // uniform per block
-  extern __shared__ float acc[];
-  unsigned char* touched = reinterpret_cast<unsigned char*>(acc + tile * C);
   const int64_t begin = clamp64((int64_t)wb[w] * maxu, 0, Q);
   const int64_t end = clamp64(begin + maxu, begin, Q);
-  zero_shared(acc, tile * C);
-  for (int i = threadIdx.x; i < tile; i += blockDim.x) touched[i] = 0;
-  __syncthreads();
-  accumulate_run<T>(qs, gs, begin, end, t * tile, tile, C, acc, touched);
-  __syncthreads();
-  float* dst = out + t * tile * C;
-  for (int i = threadIdx.x; i < tile * C; i += blockDim.x) {
-    if (touched[i / C]) atomicAdd(dst + i, acc[i]);
-  }
+  const int64_t span = (end - begin + kRunThreads - 1) / kRunThreads * 32;
+  const int64_t w0 = begin + (int64_t)(threadIdx.x >> 5) * span;
+  const int64_t w1 = w0 + span < end ? w0 + span : end;
+  reduce_span<T, V>(qs, gs, out, w0, w1, C,
+                    ItemRule{t * tile, (t + 1) * tile});
 }
 
-template <typename T, int V>
-int launch_tile_scatter(const void* qs, const void* gs, const void* lo,
-                        void* out, long long Q, long long n_tiles, int tile,
-                        int C, cudaStream_t stream) {
-  const unsigned blocks = (unsigned)((Q + kChunk - 1) / kChunk);
-  tile_scatter_kernel<T, V><<<blocks, kRunThreads, 0, stream>>>(
-      (const int32_t*)qs, (const T*)gs, (const int32_t*)lo, (float*)out,
-      (int64_t)Q, (int64_t)n_tiles, tile, C);
-  return (int)cudaGetLastError();
+// Returns launch(std::integral_constant<int, V>()) for the widest V of 16,
+// 8, 4 or 2 bytes of T (or one element) that divides C and to which the
+// row pointer gs is aligned: the elements a load reads.
+template <typename T, typename F>
+int with_width(const void* gs, int C, F launch) {
+  int V = 16 / (int)sizeof(T);
+  while (V > 1 && (C % V != 0 || (uintptr_t)gs % (V * sizeof(T)) != 0)) {
+    V /= 2;
+  }
+  if constexpr (sizeof(T) == 2) {
+    if (V == 8) return launch(std::integral_constant<int, 8>());
+  }
+  if (V == 4) return launch(std::integral_constant<int, 4>());
+  if (V == 2) return launch(std::integral_constant<int, 2>());
+  return launch(std::integral_constant<int, 1>());
 }
 
 template <typename T>
@@ -301,22 +324,14 @@ int tile_scatter(const void* qs, const void* gs, const void* lo, void* out,
                  long long Q, long long n_tiles, int tile, int C,
                  void* stream) {
   if (Q <= 0 || n_tiles <= 0 || C <= 0) return (int)cudaSuccess;
-  // each load reads V elements: the widest of 16, 8, 4 or 2 bytes that
-  // divides C and to which the row pointer is aligned
-  int V = 16 / (int)sizeof(T);
-  while (V > 1 && (C % V != 0 || (uintptr_t)gs % (V * sizeof(T)) != 0)) {
-    V /= 2;
-  }
-  cudaStream_t s = (cudaStream_t)stream;
-  if constexpr (sizeof(T) == 2) {
-    if (V == 8) return launch_tile_scatter<T, 8>(qs, gs, lo, out, Q, n_tiles,
-                                                 tile, C, s);
-  }
-  if (V == 4) return launch_tile_scatter<T, 4>(qs, gs, lo, out, Q, n_tiles,
-                                               tile, C, s);
-  if (V == 2) return launch_tile_scatter<T, 2>(qs, gs, lo, out, Q, n_tiles,
-                                               tile, C, s);
-  return launch_tile_scatter<T, 1>(qs, gs, lo, out, Q, n_tiles, tile, C, s);
+  const unsigned blocks = (unsigned)((Q + kChunk - 1) / kChunk);
+  return with_width<T>(gs, C, [&](auto v) {
+    tile_scatter_kernel<T, decltype(v)::value>
+        <<<blocks, kRunThreads, 0, (cudaStream_t)stream>>>(
+            (const int32_t*)qs, (const T*)gs, (const int32_t*)lo,
+            (float*)out, (int64_t)Q, (int64_t)n_tiles, tile, C);
+    return (int)cudaGetLastError();
+  });
 }
 
 template <typename T>
@@ -325,15 +340,14 @@ int worklist_scatter(const void* qs, const void* gs, const void* wt,
                      long long Q, long long n_items, long long n_tiles,
                      int tile, int maxu, int C, void* stream) {
   if (n_items <= 0) return (int)cudaSuccess;
-  const size_t smem = (size_t)tile * C * sizeof(float) + (size_t)tile;
-  const int err = set_smem(worklist_scatter_kernel<T>, smem);
-  if (err != (int)cudaSuccess) return err;
-  worklist_scatter_kernel<T><<<(unsigned)n_items, kThreads, smem,
-                               (cudaStream_t)stream>>>(
-      (const int32_t*)qs, (const T*)gs, (const int32_t*)wt,
-      (const int32_t*)wb, (const int32_t*)wreal, (float*)out, (int64_t)Q,
-      (int64_t)n_tiles, tile, maxu, C);
-  return (int)cudaGetLastError();
+  return with_width<T>(gs, C, [&](auto v) {
+    worklist_scatter_kernel<T, decltype(v)::value>
+        <<<(unsigned)n_items, kRunThreads, 0, (cudaStream_t)stream>>>(
+            (const int32_t*)qs, (const T*)gs, (const int32_t*)wt,
+            (const int32_t*)wb, (const int32_t*)wreal, (float*)out,
+            (int64_t)Q, (int64_t)n_tiles, tile, maxu, C);
+    return (int)cudaGetLastError();
+  });
 }
 
 }  // namespace

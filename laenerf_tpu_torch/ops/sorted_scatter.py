@@ -11,7 +11,9 @@ over update rows sorted by destination row, into a table of n_tiles tiles of
                     a zero-filled output; an update counts only in its
                     tile's slab [lo[k], lo[k+1])
   worklist_scatter  K6: one block per (table tile wt, update block wb) work
-                    item, combined with f32 atomics into a zero-filled output
+                    item, whose runs of one row in its tile are summed in
+                    registers the same way and all added with vector atomics
+                    into a zero-filled output (any work list)
 
 Counterparts of the TPU prototypes perf/microbench_scatter2.py:137 (K5) and
 perf/probe_worklist.py:71, perf/probe_worklist2.py:71 (K6, f32 and bf16
@@ -34,7 +36,6 @@ from .cuda_build import I32, I64, P, check_int32, launch, on_cpu
 
 _SOURCE = "sorted_scatter.cu"
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
-_MAX_SMEM = 232448  # bytes of shared memory a block may use on an H100
 
 
 class WorkSizes(NamedTuple):
@@ -159,11 +160,16 @@ def worklist_scatter(qs, gs, wt, wb, wreal, tile: int, maxu: int,
     """out[t, c] = sum over real work items w with wt[w] == t // tile of the
     gs[q, c] in update block wb[w] with qs[q] == t.
 
+    Any work list is taken: an update counts once for every real item
+    that covers it (a duplicated item adds twice), and qs need not be
+    sorted.
+
     Args:
       qs: [Q] int32 destination rows (sorted, for a work list from
         build_worklist); a block that runs past Q stops at Q.
       gs: [Q, C] float32 or bfloat16 update rows in qs's order.
-      wt, wb, wreal: [W] int32 work items (build_worklist); wfirst is not
+      wt, wb, wreal: [W] int32 work items (build_worklist); items with
+        wreal == 0 or wt outside [0, n_tiles) add nothing; wfirst is not
         needed, the output is zero-filled.
       tile, maxu: rows per tile, updates per block.
       n_tiles: tiles in the output.
@@ -189,9 +195,8 @@ tile_scatter.launches = 0
 worklist_scatter.launches = 0
 
 
-def _check_updates(qs, gs, tile, extra_smem=0):
-    """qs [Q] int32, gs [Q, C] f32 or bf16, and a [tile, C] f32 tile (plus
-    extra_smem bytes) that fits a block's shared memory."""
+def _check_updates(qs, gs, tile):
+    """qs [Q] int32, gs [Q, C] f32 or bf16, tile >= 1."""
     check_int32("qs", qs)
     if gs.dim() != 2 or gs.shape[0] != qs.shape[0]:
         raise ValueError(f"want qs [Q] and gs [Q, C], got {tuple(qs.shape)} "
@@ -200,10 +205,6 @@ def _check_updates(qs, gs, tile, extra_smem=0):
         raise TypeError(f"gs must be float32 or bfloat16, got {gs.dtype}")
     if tile < 1:
         raise ValueError(f"tile must be >= 1, got {tile}")
-    smem = tile * gs.shape[1] * 4 + extra_smem
-    if smem > _MAX_SMEM:
-        raise ValueError(f"a [{tile}, {gs.shape[1]}] f32 tile needs {smem} B "
-                         f"of shared memory, more than {_MAX_SMEM}")
 
 
 def _check_tile(qs, gs, lo, tile):
@@ -216,8 +217,8 @@ def _check_tile(qs, gs, lo, tile):
 
 
 def _check_worklist(qs, gs, wt, wb, wreal, tile, maxu, n_tiles):
-    """Checks K6's arguments (its tile also keeps a touched flag a row)."""
-    _check_updates(qs, gs, tile, extra_smem=tile)
+    """Checks K6's arguments."""
+    _check_updates(qs, gs, tile)
     for name, t in (("wt", wt), ("wb", wb), ("wreal", wreal)):
         check_int32(name, t)
     if not wt.shape == wb.shape == wreal.shape:

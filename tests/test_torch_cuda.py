@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+import _worklist_cases
 from laenerf_tpu_torch.ops import construct_probes as cp
 from laenerf_tpu_torch.ops.gather import (grid_probe, grid_probe_plain,
                                           take_lanes, take_lanes_plain,
@@ -217,12 +218,14 @@ SORTED_CASES = {
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("tile", [1024, 2048])
+@pytest.mark.parametrize("tile", [1024, 2048, 8192])
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 @pytest.mark.parametrize("case", sorted(SORTED_CASES))
 def test_sorted_scatter_kernels_match_plain(cuda, case, dtype, tile):
     """K5 and K6 on sorted updates and their work list, against their plain
-    versions; rows below 0 or past the tiles are dropped."""
+    versions; rows below 0 or past the tiles are dropped. Neither kernel
+    keeps a tile in shared memory, so 8,192-row tiles (a [tile, 8] f32 tile
+    would be 256 KB) are taken too."""
     idx, g, T = SORTED_CASES[case]()
     rows = torch.tensor(g, dtype=torch.float32, device=cuda).to(
         torch.float32 if dtype == "f32" else torch.bfloat16)
@@ -407,3 +410,89 @@ def test_tile_scatter_drops_rows_outside_their_tile(cuda):
     torch.cuda.synchronize()
     assert tile_scatter.launches == before + 1
     assert empty.shape == (64, 2) and not empty.any()
+
+
+def _tensors(dev, *arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays]
+
+
+def _worklist_matches_plain(qs, gs, wt, wb, wreal, tile, maxu, n_tiles):
+    before = worklist_scatter.launches
+    got = worklist_scatter(qs, gs, wt, wb, wreal, tile, maxu, n_tiles)
+    ref = worklist_scatter_plain(qs, gs, wt, wb, wreal, tile, maxu, n_tiles)
+    torch.cuda.synchronize()
+    assert worklist_scatter.launches == before + 1
+    assert got.shape == (n_tiles * tile, gs.shape[1])
+    assert ref.abs().max() > 0
+    assert _rel_err(got, ref) < REL_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("case", sorted(_worklist_cases.WORKLIST_CASES))
+def test_worklist_scatter_on_hand_made_lists(cuda, case, dtype):
+    """K6 on the hand-made work lists of tests/_worklist_cases.py (a
+    duplicated item adds twice, unsorted qs, a block past Q, items with
+    wreal == 0 or wt outside the tiles, a slab over three blocks, one row
+    over whole blocks), at 300-update blocks, against its plain version."""
+    qs, g, wt, wb, wreal, tile, maxu, n_tiles = \
+        _worklist_cases.worklist_case(case)
+    qs, wt, wb, wreal = _tensors(cuda, qs, wt, wb, wreal)
+    gs = torch.tensor(g, dtype=torch.float32, device=cuda).to(
+        torch.float32 if dtype == "f32" else torch.bfloat16)
+    _worklist_matches_plain(qs, gs, wt, wb, wreal, tile, maxu, n_tiles)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("layout", ["offset1", "offset2", "offset4", "c3",
+                                    "c12", "c20"])
+def test_worklist_scatter_on_views_and_widths(cuda, layout, dtype):
+    """K6 on contiguous views whose rows start 1, 2 or 4 elements into
+    their storage (narrower loads, or none 16 bytes wide), and at C = 3, 12
+    and 20 (several channel groups, a partial last one), with a duplicated
+    item in the list."""
+    rng = np.random.RandomState(len(layout))
+    tdt = torch.float32 if dtype == "f32" else torch.bfloat16
+    offset = int(layout[6:]) if layout.startswith("offset") else 0
+    C = 8 if offset else int(layout[1:])
+    rows = np.sort(np.concatenate([rng.randint(0, 20000, 30000),
+                                   np.full(900, 4321)])).astype(np.int32)
+    Q, tile, maxu = rows.shape[0], 1024, 1024
+    flat = torch.tensor(rng.randn(Q * C + offset), dtype=torch.float32,
+                        device=cuda).to(tdt)
+    gs = flat[offset:].view(Q, C)
+    assert gs.is_contiguous() and gs.storage_offset() == offset
+    qs = torch.from_numpy(rows).to(cuda)
+    sizes = work_sizes(Q, 20000, tile, maxu)
+    lo = sort_stage(qs, gs, tile, sizes.n_tiles)[2]
+    wt, wb, _, wreal = build_worklist(lo, maxu, sizes.w_cap, sizes.q_blks)
+    wt, wb, wreal = (torch.cat([a, a[4:5]]) for a in (wt, wb, wreal))
+    _worklist_matches_plain(qs, gs, wt, wb, wreal, tile, maxu, sizes.n_tiles)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile,C,n_tiles", [(100, 4, 5), (300, 12, 3),
+                                            (1000, 8, 1), (1, 4, 7)])
+def test_row_copies_match_plain(cuda, tile, C, n_tiles):
+    """K7 k2 and k3, which copy a tile in 2 KB slices, one block each: tiles
+    of 1,600 B (one short slice), 14,400 B (seven and a short one), 32,000 B
+    in a single tile and 16 B; k3 at offsets 0 and R - tile among random
+    ones. Equal to the plain versions and to repeat / index_select."""
+    rng = np.random.RandomState(tile)
+    R = 3 * tile + 5
+    g = torch.tensor(rng.randn(R, C), dtype=torch.float32, device=cuda)
+    lo = rng.randint(0, R - tile + 1, n_tiles)
+    lo[0], lo[-1] = (0, R - tile) if n_tiles > 1 else (R - tile,) * 2
+    lo = torch.from_numpy(lo.astype(np.int32)).to(cuda)
+    before = cp.static_copy.launches, cp.dynamic_copy.launches
+    got2 = cp.static_copy(g, n_tiles, tile)
+    got3 = cp.dynamic_copy(g, lo, n_tiles, tile)
+    torch.cuda.synchronize()
+    assert (cp.static_copy.launches, cp.dynamic_copy.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.equal(got2, cp.static_copy_plain(g, n_tiles, tile))
+    assert torch.equal(got2, g[:tile].repeat(n_tiles, 1))
+    rows = (lo.long()[:, None] + torch.arange(tile, device=cuda)).reshape(-1)
+    assert torch.equal(got3, cp.dynamic_copy_plain(g, lo, n_tiles, tile))
+    assert torch.equal(got3, torch.index_select(g, 0, rows))

@@ -29,6 +29,7 @@ import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
+import _worklist_cases
 from laenerf_tpu_torch.ops.sorted_scatter import (build_worklist, sort_stage,
                                                   tile_scatter,
                                                   tile_scatter_plain,
@@ -338,6 +339,25 @@ def test_worklist_scatter_on_special_lists():
         assert _rel(got.numpy(), ref.numpy()) < REL_TOL, case
 
 
+@pytest.mark.parametrize("case", sorted(_worklist_cases.WORKLIST_CASES))
+def test_worklist_scatter_plain_on_hand_made_lists(case):
+    """K6's contract on hand-made work lists (tests/_worklist_cases.py): a
+    duplicated item adds twice, unsorted qs, blocks past Q, items that add
+    nothing, a slab over three blocks, one row over whole blocks; against
+    the list's sum item by item in float64. The card holds the kernel to
+    the same cases (tests/test_torch_cuda.py)."""
+    qs, g, wt, wb, wreal, tile, maxu, n_tiles = \
+        _worklist_cases.worklist_case(case)
+    g32 = torch.tensor(g, dtype=torch.float32)
+    qs_t, wt_t, wb_t, wreal_t = map(torch.from_numpy, (qs, wt, wb, wreal))
+    got = worklist_scatter(qs_t, g32, wt_t, wb_t, wreal_t, tile, maxu,
+                           n_tiles)
+    ref = _worklist_cases.worklist_reference(qs, g32.double().numpy(), wt, wb,
+                                             wreal, tile, maxu, n_tiles)
+    assert got.shape == (n_tiles * tile, g.shape[1])
+    assert _rel(got.numpy(), ref) < REL_TOL
+
+
 def test_tile_scatter_plain_drops_rows_outside_their_tile():
     """Rows below 0 or past the table are dropped, and so is a row that a
     hand-made lo puts in another tile's slab."""
@@ -435,7 +455,7 @@ def test_scatter_probe_main_on_cpu(script, rows, capsys):
     lambda: tile_scatter(torch.zeros(4, dtype=torch.int32), torch.zeros(4, 8),
                          torch.zeros(0, dtype=torch.int32), 32),
     lambda: tile_scatter(torch.zeros(4, dtype=torch.int32), torch.zeros(4, 8),
-                         torch.zeros(2, dtype=torch.int32), 8192),
+                         torch.zeros(2, dtype=torch.int32), 0),
     lambda: worklist_scatter(torch.zeros(4, dtype=torch.int32),
                              torch.zeros(4, 8),
                              torch.zeros(3, dtype=torch.int32),
@@ -444,7 +464,7 @@ def test_scatter_probe_main_on_cpu(script, rows, capsys):
     lambda: tile_scatter(torch.zeros(4, dtype=torch.int32, device="meta"),
                          torch.zeros(4, 8, device="meta"),
                          torch.zeros(2, dtype=torch.int32, device="meta"), 32),
-], ids=["int64_rows", "f64_updates", "lengths", "empty_lo", "smem",
+], ids=["int64_rows", "f64_updates", "lengths", "empty_lo", "zero_tile",
         "work_lengths", "meta_device"])
 def test_wrappers_reject_bad_args(call):
     with pytest.raises((TypeError, ValueError)):
