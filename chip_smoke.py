@@ -8,7 +8,8 @@ Phases, one or more lines each, tagged with the seconds since the start
   2. build: compiles the CUDA sources (csrc/scatter_add.cu: K1;
      csrc/gather_probes.cu: K2-K4; csrc/sorted_scatter.cu: K5, K6;
      csrc/construct_probes.cu: K7) with nvcc, one process per source, all
-     started together.
+     started together; prints the registers, shared memory and spill
+     stores of K3's and K7 k4's kernels.
   3. K1 against its plain PyTorch version on the card: the cases of the
      JAX package's scatter-add tests, the main-path shape (65,536 samples x
      8 levels x 8 corners of the L8C4 lg19 grid), and the hash-grid backward
@@ -18,7 +19,9 @@ Phases, one or more lines each, tagged with the seconds since the start
      x4; P4, P4b, P6), each equal to its plain version and to the PyTorch
      call for the same function (torch.equal), timed against both (plain,
      library, kernel, kernel, library, plain) beside its bound, and its
-     device time under the profiler.
+     device time under the profiler. Then K3 at ragged shapes, untimed (N
+     off the 16-byte chunks, one-row tables, views 4 bytes into their
+     storage), equal to its plain version and to torch.gather.
   5. probes: the two gather-probe entry points (laenerf_tpu_torch.perf.
      microbench_pallas and microbench_gather, --n 16), with the launch
      counts of K2-K4 set to 0 before and read after; each must launch.
@@ -38,7 +41,10 @@ Phases, one or more lines each, tagged with the seconds since the start
      to the PyTorch call for the same function (torch.equal) on the
      script's inputs and on random ones, timed against both on the random
      ones; then k6b's kernel on a skewed input (all 1,024 columns of each
-     tile on one row, small integers) equal to its plain version.
+     tile on one row, small integers) equal to its plain version, and k4
+     at the edges of its 64-row slices (offsets 0, len(q) - tile and 1-3
+     mod 4; C = 1, 4, 8, 12; one tile) equal to its plain version and to
+     torch.take.
   8. probes: the four scatter entry points (microbench_scatter2,
      probe_worklist, probe_worklist2 at --n 12; bisect_mosaic), with the
      launch counts of K5-K7 set to 0 before and read after; each must
@@ -80,6 +86,8 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 BF16_TC_OPS_PER_S = 989e12  # dense bf16 on the tensor cores
 SECTOR = 32  # bytes: the unit in which L2 and HBM serve a random read
+# kernels whose registers, shared memory and spills the build phase prints
+REPORTED_KERNELS = ("take_lanes_kernel", "copy_1d_kernel")
 
 
 START = time.perf_counter()
@@ -96,6 +104,25 @@ def card_line():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     return out.stdout.strip().splitlines()[0].strip()
+
+
+def ptxas_kernels(report, names):
+    """(mangled name, registers, spill-store bytes, shared-memory bytes) of
+    each kernel in nvcc's -Xptxas=-v report whose name holds one of names."""
+    found, name, spill = [], None, 0
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name, spill = m.group(1), 0
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name and any(n in name for n in names):
+            smem = re.search(r"(\d+) bytes smem", line)
+            found.append((name, int(m.group(1)), spill,
+                          int(smem.group(1)) if smem else 0))
+    return found
 
 
 def cuda_ms(fn, reps=20):
@@ -396,7 +423,53 @@ def phase_gather(card, dev):
                         f"({n_bytes} B, {bound_by}); device time under the "
                         f"profiler: kernel {dev_ms} ms, library "
                         f"{dev_library_ms} ms ({card})")
+    calls = take_lanes_ragged(dev)
+    phase("gather", f"take_lanes ragged shapes (N 1, 15, 17, 777 and 16384; "
+                    f"one-row and [64x40] tables; views 4 bytes into their "
+                    f"storage; f32, int32, int8; broadcast and per-row "
+                    f"idx): {calls} calls, each equal to plain and "
+                    f"torch.gather")
     return results
+
+
+def take_lanes_ragged(dev):
+    """K3 at ragged shapes, untimed: rows off 16-byte boundaries (N % V !=
+    0, the kernel's scalar path), a one-row table, and idx and tbl as
+    contiguous views 4 bytes into their storage, for each dtype, with a
+    broadcast and a per-row index; each equal to its plain version and to
+    torch.gather. Returns the number of calls."""
+    from laenerf_tpu_torch.ops.gather import take_lanes, take_lanes_plain
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    calls = 0
+    for dtype in (torch.float32, torch.int32, torch.int8):
+        for R, N, L in ((1, 17, 300), (3, 777, 5000), (64, 15, 40),
+                        (2, 1, 1), (5, 16384, 70000)):
+            for idx_rows in (1, R):
+                for view in (False, True):
+                    k = 4 // torch.tensor([], dtype=dtype).element_size() \
+                        if view else 0
+                    n = R * L + k
+                    flat = (torch.randn(n, generator=gen, device=dev)
+                            if dtype == torch.float32 else
+                            torch.randint(-128, 128, (n,), generator=gen,
+                                          device=dev, dtype=dtype))
+                    tbl = flat[k:].view(R, L)
+                    j = int(view)
+                    idx = torch.randint(0, L, (idx_rows * N + j,),
+                                        generator=gen, device=dev,
+                                        dtype=torch.int32)[j:].view(
+                                            idx_rows, N)
+                    got = take_lanes(tbl, idx)
+                    lib = torch.gather(tbl, 1, idx.long().expand(R, -1))
+                    if not (torch.equal(got, take_lanes_plain(tbl, idx))
+                            and torch.equal(got, lib)):
+                        raise AssertionError(
+                            f"take_lanes ragged {dtype} [{R}x{L}] N={N} "
+                            f"idx rows {idx_rows} view {view}: differs from "
+                            f"its plain version or torch.gather")
+                    calls += 1
+    return calls
 
 
 def phase_probes(card):
@@ -714,7 +787,43 @@ def phase_constructs(card, dev):
                              "row) differs from its plain version")
     phase("constructs", f"k6b skewed: {n_tiles} tiles x {maxu} columns, "
                         f"each tile on one row, C={C}: equal to plain")
+    calls = copy_1d_ragged(dev)
+    phase("constructs", f"k4 edges (tiles 1, 65, 100, 300, 1000 and 1024; "
+                        f"C 1, 4, 8, 12; offsets 0, len(q) - tile and 1, 2, "
+                        f"3 mod 4): {calls} calls, each equal to plain and "
+                        f"torch.take")
     return results
+
+
+def copy_1d_ragged(dev):
+    """k4 at the edges of its 64-row slices and 16-byte windows, untimed:
+    tiles that are not a multiple of 64 rows, C = 1, 4, 8 and 12, one tile,
+    the offsets of bisect_mosaic.edge_offsets; each equal to its plain
+    version and to torch.take. Returns the number of calls."""
+    from laenerf_tpu_torch.ops.construct_probes import copy_1d, copy_1d_plain
+    from laenerf_tpu_torch.perf.bisect_mosaic import edge_offsets
+
+    rng = np.random.RandomState(10)
+    calls = 0
+    for tile, C, n_tiles in ((1024, 8, 8), (100, 4, 5), (300, 12, 3),
+                             (1000, 8, 1), (1, 1, 7), (65, 1, 4)):
+        n_q = 4 * ((3 * tile + 8) // 4)
+        q = torch.from_numpy(rng.randint(-2 ** 31, 2 ** 31 - 1, n_q).astype(
+            np.int32)).to(dev)
+        for lo_np in edge_offsets(tile, n_tiles, n_q):
+            lo = torch.from_numpy(lo_np).to(dev)
+            got = copy_1d(q, lo, n_tiles, tile, C)
+            rows = (lo[:n_tiles].long()[:, None]
+                    + torch.arange(tile, device=dev)).reshape(-1)
+            lib = torch.take(q, rows[:, None].expand(-1, C)).float()
+            if not (torch.equal(got, copy_1d_plain(q, lo, n_tiles, tile, C))
+                    and torch.equal(got, lib)):
+                raise AssertionError(f"copy_1d tile {tile} C {C} n_tiles "
+                                     f"{n_tiles} lo {lo_np.tolist()}: "
+                                     f"differs from its plain version or "
+                                     f"torch.take")
+            calls += 1
+    return calls
 
 
 def phase_scatter_probes(card):
@@ -914,6 +1023,10 @@ def main():
         phase("build", f"{src} built in {info['seconds']:.1f} s (nvcc "
                        f"sm_90a); ptxas: {' | '.join(regs) or 'cached'}; "
                        f"spill stores {spills} B")
+        for name, regs, spill, smem in ptxas_kernels(info["ptxas"],
+                                                     REPORTED_KERNELS):
+            phase("build", f"ptxas {name}: {regs} registers, {smem} B "
+                           f"shared memory, {spill} B spill stores")
     phase("build", f"all sources in {time.perf_counter() - t0:.1f} s")
 
     model_cfg = NeRFConfig(bound=1.0, num_levels=8, level_dim=4,

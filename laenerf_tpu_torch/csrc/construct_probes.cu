@@ -27,12 +27,16 @@
 //   k7 probe_iota             row r of tile k = r (a 1-D iota, :190)
 //
 // What bounds them on an H100: k1-k5 and k7 the launch (outputs of 256 KB).
-// k1, k4, k5 and k7 launch one block per tile, 8 blocks on 132 SMs. k2 and
+// k1, k5 and k7 launch one block per tile, 8 blocks on 132 SMs. k2 and
 // k3 spread each tile over the card: a tile of g is one contiguous run of
 // tile * C * 4 bytes, so one block per (tile, 2 KB slice of it), 128 blocks
 // at the probe's shape, whose one thread starts a bulk load of the slice
 // into shared memory on an mbarrier and, once it lands, a bulk store of the
-// same bytes to the output; no thread loads or stores a float itself. k6
+// same bytes to the output; no thread loads or stores a float itself. k4
+// spreads its tiles the same way, one 64-thread block per (tile, 64 rows),
+// 128 blocks at the probe's shape (2 KB of output each at C = 8): one bulk
+// load brings the rows' int32 q into shared memory on an mbarrier, and each
+// thread converts one row and writes its C floats with 16-byte stores. k6
 // and k6b are bound by bytes: at k6b the 2 MB of bf16 g read, the 4 MB f32
 // output written and the 32 KB of local, 6.32 MB at 3.35 TB/s =
 // 1.89 us. The dense [tile, maxu] @ [maxu, C] product would be 2.15 GFLOP,
@@ -51,8 +55,8 @@
 // Bulk copies need 16-byte aligned addresses and sizes: the wrappers check
 // the base pointers and that a row of g is a multiple of 16 bytes (so are a
 // tile and each slice of it); k4 copies the 16-byte aligned window around
-// q[lo[k] : lo[k] + tile], which stays inside q when q's length is a
-// multiple of 4. Offsets must lie in range (the
+// each block's rows of q[lo[k] : lo[k] + tile], which stays inside q when
+// q's length is a multiple of 4. Offsets must lie in range (the
 // plain versions raise, the kernels do not check). Plain C interface, loaded
 // with ctypes. Each kernel runs on the caller's stream and each entry point
 // returns cudaGetLastError() after the launch.
@@ -61,8 +65,6 @@
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
-
-#include "smem.cuh"
 
 namespace {
 
@@ -154,24 +156,46 @@ __global__ void row_copy_kernel(const float* __restrict__ g,
   bulk_store(reinterpret_cast<char*>(out) + k * tile_bytes + off, buf, bytes);
 }
 
-__global__ void copy_1d_kernel(const int32_t* __restrict__ q,
-                               const int32_t* __restrict__ lo,
-                               float* __restrict__ out, int tile, int C) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
+constexpr int kCopyRows = 64;  // k4: rows of a tile a block converts
+
+// k4: block b converts the rows [r0, r0 + rows) of tile k = b / slices,
+// r0 = (b % slices) * kCopyRows, one thread a row. Thread 0 starts one bulk
+// load of the rows' q, as the 16-byte aligned window around
+// q[lo[k] + r0 : lo[k] + r0 + rows], on an mbarrier; each thread then
+// converts its row's int32 and writes it into all C lanes, as float4
+// stores where C % 4 == 0 (every row then starts 16-byte aligned) and one
+// float at a time otherwise.
+__global__ void __launch_bounds__(kCopyRows)
+    copy_1d_kernel(const int32_t* __restrict__ q,
+                   const int32_t* __restrict__ lo, float* __restrict__ out,
+                   int tile, int C, unsigned slices) {
+  __shared__ __align__(16) int32_t scr[kCopyRows + 4];
   __shared__ __align__(8) uint64_t bar;
-  int32_t* scr = reinterpret_cast<int32_t*>(smem_raw);
-  const int64_t start = lo[blockIdx.x];
+  const unsigned k = blockIdx.x / slices;
+  const int r0 = (int)(blockIdx.x - k * slices) * kCopyRows;
+  const int rows = min(kCopyRows, tile - r0);
+  const int64_t start = (int64_t)lo[k] + r0;
   const int64_t aligned = start & ~(int64_t)3;  // 16-byte aligned source
   const int off = (int)(start - aligned);
-  const int n = (off + tile + 3) & ~3;  // whole 16-byte units
-  if (threadIdx.x == 0) mbar_init(&bar, 1);
-  __syncthreads();
-  if (threadIdx.x == 0)
-    bulk_load(scr, q + aligned, (uint32_t)(n * sizeof(int32_t)), &bar);
+  if (threadIdx.x == 0) {
+    mbar_init(&bar, 1);
+    // whole 16-byte units; the window ends at most at round_up(lo[k] +
+    // tile, 4) <= len(q), a multiple of 4
+    bulk_load(scr, q + aligned,
+              (uint32_t)(((off + rows + 3) & ~3) * sizeof(int32_t)), &bar);
+  }
+  __syncthreads();  // the barrier is initialised before anyone waits on it
   mbar_wait(&bar, 0);
-  float* dst = out + (int64_t)blockIdx.x * tile * C;
-  for (int i = threadIdx.x; i < tile * C; i += blockDim.x)
-    dst[i] = (float)scr[off + i / C];
+  const int t = threadIdx.x;
+  if (t >= rows) return;
+  const float v = (float)scr[off + t];
+  float* dst = out + ((int64_t)k * tile + r0 + t) * C;
+  if (C % 4 == 0) {
+    const float4 v4 = make_float4(v, v, v, v);
+    for (int c = 0; c < C; c += 4) *reinterpret_cast<float4*>(dst + c) = v4;
+  } else {
+    for (int c = 0; c < C; ++c) dst[c] = v;
+  }
 }
 
 __global__ void dynamic_loop_kernel(const int32_t* __restrict__ lo,
@@ -397,13 +421,12 @@ extern "C" int probe_copy_1d(const void* q, const void* lo, void* out,
                              long long n_tiles, int tile, int C,
                              void* stream) {
   if (n_tiles <= 0) return (int)cudaSuccess;
-  const size_t smem = (size_t)(tile + 4) * sizeof(int32_t);
-  const int err = set_smem(copy_1d_kernel, smem);
-  if (err != (int)cudaSuccess) return err;
-  copy_1d_kernel<<<(unsigned)n_tiles, kThreads, smem,
+  const long long slices = (tile + kCopyRows - 1) / kCopyRows;
+  if (n_tiles * slices > INT_MAX) return (int)cudaErrorInvalidConfiguration;
+  copy_1d_kernel<<<(unsigned)(n_tiles * slices), kCopyRows, 0,
                    (cudaStream_t)stream>>>((const int32_t*)q,
                                            (const int32_t*)lo, (float*)out,
-                                           tile, C);
+                                           tile, C, (unsigned)slices);
   return (int)cudaGetLastError();
 }
 

@@ -19,7 +19,8 @@ them; each writes an f32 [n_tiles * tile, C] output, tile k in rows
 
 k2-k4 are bulk asynchronous copies into shared memory that complete on an
 mbarrier (k2 and k3 one block per 2 KB slice of a tile, stored back with a
-bulk copy out); k6 buckets each tile's columns by 32-row window and runs the
+bulk copy out; k4 one block per 64 rows of a tile, converted and stored
+with 16-byte stores); k6 buckets each tile's columns by 32-row window and runs the
 product over each window's columns on the tensor cores, one block per
 (tile, window, channel chunk). Each wrapper launches its kernel on a
 CUDA tensor, counts the launch in `<fn>.launches`, and runs its plain version

@@ -90,6 +90,19 @@ def cases(device="cuda", seed=None):
     ]
 
 
+def edge_offsets(tile, n_tiles, n_q):
+    """k4's offsets at the edges of its 64-row slices and 16-byte windows,
+    for a q of n_q entries: 0, n_q - tile, and values that are 1, 2 and 3
+    mod 4 (a window that starts inside a 16-byte unit). One lo vector of
+    n_tiles + 1 entries a call, as many calls as it takes to give each
+    offset a tile."""
+    hi = n_q - tile
+    edges = [0, hi] + [v for v in (1, 2, 3, hi - 3, hi - 2, hi - 1,
+                                   4 * (hi // 8) + 1) if 0 <= v <= hi]
+    return [np.resize(np.roll(edges, -i), n_tiles + 1).astype(np.int32)
+            for i in range(0, len(edges), n_tiles)]
+
+
 def main(argv=None):
     args = make_parser("Construct bisection of perf/bisect_mosaic.py on the "
                        "port's kernel K7.").parse_args(argv)

@@ -170,6 +170,23 @@ def test_construct_matches_pallas_on_random_inputs(label):
                                   _jax_construct(label, args))
 
 
+def test_copy_1d_matches_pallas_on_edge_offsets():
+    """k4 at the script's grid (8 tiles of 1,024 rows, C = 8) with offsets
+    at the edges of the kernel's 64-row slices and 16-byte windows: 0,
+    len(q) - tile, and values that are 1, 2 and 3 mod 4
+    (bisect_mosaic.edge_offsets, both of its lo vectors), on random q."""
+    rng = np.random.RandomState(12)
+    q = torch.from_numpy(rng.randint(-2 ** 31, 2 ** 31 - 1, Q + MAXU)
+                         .astype(np.int32))
+    offsets = bisect_mosaic.edge_offsets(TILE, N_TILES, Q + MAXU)
+    assert len(offsets) == 2 and {0, Q + MAXU - TILE} <= set(offsets[0])
+    for lo in offsets:
+        assert {int(v) % 4 for v in lo} == {0, 1, 2, 3}
+        args = (q, torch.from_numpy(lo), N_TILES, TILE, C)
+        np.testing.assert_array_equal(cp.copy_1d(*args).numpy(),
+                                      _jax_construct("k4", args))
+
+
 def _onehot_case(case):
     """(local int32, g f32 of bf16 values, tile) of one one-hot product:
     for C = case (8, 128), k6's or k6b's random case of bisect_mosaic (a

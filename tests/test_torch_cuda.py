@@ -141,19 +141,56 @@ def test_take_rows_kernel_matches_plain(cuda, dtype):
     assert torch.equal(got, take_rows_plain(tbl, rows))
 
 
+def _take_lanes_matches(tbl, idx):
+    """One K3 launch, equal to its plain version and to torch.gather."""
+    before = take_lanes.launches
+    got = take_lanes(tbl, idx)
+    torch.cuda.synchronize()
+    assert take_lanes.launches == before + 1
+    assert got.shape == (tbl.shape[0], idx.shape[1])
+    assert torch.equal(got, take_lanes_plain(tbl, idx))
+    assert torch.equal(got, torch.gather(
+        tbl, 1, idx.long().expand(tbl.shape[0], -1)))
+
+
+# (R, N, L): N in {1, 15, 16, 17, 777, 16384} by R in {1, 3, 64}, rows
+# that start off 16-byte boundaries (N % V != 0) taking the scalar path and
+# the rest the 16-byte chunks; then more chunks than one wave of the card
+# holds (601 rows of 16,384), so each thread walks several rows
+TAKE_LANES_SHAPES = [(R, N, 1500)
+                     for N in (1, 15, 16, 17, 777, 16384)
+                     for R in (1, 3, 64)] + [(64, 777, 5000),
+                                            (601, 16384, 1000)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("broadcast", [False, True])
 @pytest.mark.parametrize("dtype", sorted(GATHER_DTYPES))
 def test_take_lanes_kernel_matches_plain(cuda, dtype, broadcast):
     rng = np.random.RandomState(1)
-    tbl = _gather_table(rng, (64, 5000), GATHER_DTYPES[dtype], cuda)
-    idx = _idx(rng, 5000, (1 if broadcast else 64, 777), cuda)
-    before = take_lanes.launches
-    got = take_lanes(tbl, idx)
-    torch.cuda.synchronize()
-    assert take_lanes.launches == before + 1
-    assert got.shape == (64, 777)
-    assert torch.equal(got, take_lanes_plain(tbl, idx))
+    for R, N, L in TAKE_LANES_SHAPES:
+        tbl = _gather_table(rng, (R, L), GATHER_DTYPES[dtype], cuda)
+        _take_lanes_matches(tbl, _idx(rng, L, (1 if broadcast else R, N),
+                                      cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("broadcast", [False, True])
+@pytest.mark.parametrize("dtype", sorted(GATHER_DTYPES))
+def test_take_lanes_on_offset_views(cuda, dtype, broadcast):
+    """K3 on idx and tbl that are contiguous views 4 bytes into their
+    storage (idx off a 16-byte boundary: the scalar path), at N = 16, 777
+    and 16384."""
+    rng = np.random.RandomState(5)
+    tdt = GATHER_DTYPES[dtype]
+    k = 4 // torch.tensor([], dtype=tdt).element_size()
+    for N in (16, 777, 16384):
+        R, L = 5, 2000
+        tbl = _gather_table(rng, (R * L + k,), tdt, cuda)[k:].view(R, L)
+        rows = 1 if broadcast else R
+        idx = _idx(rng, L, (rows * N + 1,), cuda)[1:].view(rows, N)
+        assert tbl.storage_offset() == k and idx.storage_offset() == 1
+        _take_lanes_matches(tbl, idx)
 
 
 @pytest.mark.cuda
@@ -496,3 +533,30 @@ def test_row_copies_match_plain(cuda, tile, C, n_tiles):
     rows = (lo.long()[:, None] + torch.arange(tile, device=cuda)).reshape(-1)
     assert torch.equal(got3, cp.dynamic_copy_plain(g, lo, n_tiles, tile))
     assert torch.equal(got3, torch.index_select(g, 0, rows))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile,C,n_tiles", [(100, 4, 5), (300, 12, 3),
+                                            (1000, 8, 1), (1, 1, 7),
+                                            (1024, 8, 8)])
+def test_copy_1d_matches_plain(cuda, tile, C, n_tiles):
+    """K7 k4, one block per 64 rows of a tile, each a bulk load of its
+    16-byte window of q: tiles of 2, 5 and 16 slices with a short last one,
+    16 whole slices, and one row; C = 1, 4, 8, 12; offsets 0, len(q) - tile
+    and 1, 2, 3 mod 4 (bisect_mosaic.edge_offsets), each taken by some
+    tile. Equal to the plain version and to torch.take."""
+    rng = np.random.RandomState(tile + C)
+    n_q = 4 * ((3 * tile + 8) // 4)
+    q = torch.tensor(rng.randint(-2 ** 31, 2 ** 31 - 1, n_q),
+                     dtype=torch.int32, device=cuda)
+    for lo_np in bisect_mosaic.edge_offsets(tile, n_tiles, n_q):
+        lo = torch.from_numpy(lo_np).to(cuda)
+        before = cp.copy_1d.launches
+        got = cp.copy_1d(q, lo, n_tiles, tile, C)
+        torch.cuda.synchronize()
+        assert cp.copy_1d.launches == before + 1
+        assert torch.equal(got, cp.copy_1d_plain(q, lo, n_tiles, tile, C))
+        rows = (lo[:n_tiles].long()[:, None]
+                + torch.arange(tile, device=cuda)).reshape(-1)
+        assert torch.equal(got, torch.take(q, rows[:, None].expand(-1, C))
+                           .float())

@@ -175,6 +175,40 @@ def test_take_lanes_broadcast_matches_pallas(rows, lanes):
     np.testing.assert_array_equal(got.numpy(), ref)
 
 
+@pytest.mark.parametrize("kernel,rows,nray,view", [
+    ("k_ax1", 1, 17, False), ("k_ax1", 1, 777, False),
+    ("k_ax1", 3, 17, True), ("k_wide", 1, 17, False),
+    ("k_wide", 1, 777, False), ("k_wide", 3, 777, False),
+    ("k_wide", 1, 777, True), ("k_wide", 4, 16, True)])
+def test_take_lanes_ragged_matches_pallas(kernel, rows, nray, view):
+    """K3 at ragged widths: N = 17 and 777 (output rows off 16-byte
+    boundaries, the kernel's scalar path) on one-row and three-row tables,
+    through P3's _k_ax1 (f32, per-row lanes) and P3x's _k_wide (int8, one
+    index row broadcast); with view, idx and tbl are contiguous views 4
+    bytes into their storage, as the kernel may be handed them."""
+    rng = np.random.RandomState(rows * nray)
+    lanes = 300
+    if kernel == "k_ax1":
+        tbl = rng.randn(rows, lanes).astype(np.float32)
+        idx = rng.randint(0, lanes, (rows, nray)).astype(np.int32)
+        ref = _pallas(_k_ax1, (rows, nray), np.float32, tbl, idx)
+    else:
+        tbl = rng.randint(-128, 128, (rows, lanes)).astype(np.int8)
+        idx = rng.randint(0, lanes, (1, nray)).astype(np.int32)
+        ref = _pallas(_make_k_wide(rows, nray), (rows, nray), np.int8, tbl,
+                      idx)
+    t, i = torch.from_numpy(tbl), torch.from_numpy(idx)
+    if view:
+        k = 4 // t.element_size()
+        t = torch.cat([t.new_zeros(k), t.reshape(-1)])[k:].view(t.shape)
+        i = torch.cat([i.new_zeros(1), i.reshape(-1)])[1:].view(i.shape)
+        assert t.is_contiguous() and t.storage_offset() == k
+        assert i.is_contiguous() and i.storage_offset() == 1
+    got = take_lanes(t, i)
+    assert got.shape == (rows, nray) and got.dtype == t.dtype
+    np.testing.assert_array_equal(got.numpy(), ref)
+
+
 @pytest.mark.parametrize("dtype", [np.int32, np.int8])
 def test_grid_probe_matches_pallas_march_probe(dtype):
     """P4 (int32) and P4b (int8): one cell per ray into all H lanes."""
