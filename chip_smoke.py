@@ -9,11 +9,14 @@ Phases, one or more lines each, tagged with the seconds since the start
      csrc/gather_probes.cu: K2-K4; csrc/sorted_scatter.cu: K5, K6;
      csrc/construct_probes.cu: K7) with nvcc, one process per source, all
      started together; prints the registers, shared memory and spill
-     stores of K3's and K7 k4's kernels.
+     stores of K1's, K3's and K7 k1's and k4's kernels.
   3. K1 against its plain PyTorch version on the card: the cases of the
-     JAX package's scatter-add tests, the main-path shape (65,536 samples x
-     8 levels x 8 corners of the L8C4 lg19 grid), and the hash-grid backward
-     on the card against the same backward on the CPU.
+     JAX package's scatter-add tests; the main-path shape (65,536 samples x
+     8 levels x 8 corners of the L8C4 lg19 grid, passed as the backward
+     passes it, [samples, 64]) on two inputs, uniform points and 4,096
+     rays of 16 consecutive march steps, each timed against index_add_
+     beside its bound with its RED count; and the hash-grid backward on
+     the card against the same backward on the CPU.
   4. gather: K2 take_rows, K3 take_lanes and K4 grid_probe at the full
      width of every TPU call site they replace (P1, P2, P2b, G, G2; P3, P3x
      x4; P4, P4b, P6), each equal to its plain version and to the PyTorch
@@ -56,7 +59,8 @@ Phases, one or more lines each, tagged with the seconds since the start
      every step must launch K1.
   10. render: one 800x800 frame with Trainer.render_image, and the
      train-view PSNR at 100x100.
-  11. profile: kernel launches and device-busy share of a few train steps.
+  11. profile: kernel launches and device-busy share of a few train steps,
+     and K1's device time per launch inside them.
 Then one JSON line with every kernel of the path, the nvidia-smi line, and
 the final {"ok": true, "device": ...} line.
 
@@ -87,7 +91,8 @@ F32_OPS_PER_S = 67e12
 BF16_TC_OPS_PER_S = 989e12  # dense bf16 on the tensor cores
 SECTOR = 32  # bytes: the unit in which L2 and HBM serve a random read
 # kernels whose registers, shared memory and spills the build phase prints
-REPORTED_KERNELS = ("take_lanes_kernel", "copy_1d_kernel")
+REPORTED_KERNELS = ("take_lanes_kernel", "copy_1d_kernel",
+                    "scatter_add_rows_kernel", "prefetch_write_kernel")
 
 
 START = time.perf_counter()
@@ -146,10 +151,11 @@ def bound_of(n_bytes, n_ops=0, ops_per_s=F32_OPS_PER_S):
                                        else "operations")
 
 
-def device_ms(fn, reps=10):
+def device_ms(fn, reps=10, name=None):
     """Device time per call of fn: the sum of its CUDA kernels' times under
     torch.profiler, without the host's launch gaps; None if the profiler
-    saw no kernel."""
+    saw no kernel. With name, the pair (that time, the part of it in
+    kernels whose name holds name)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -158,9 +164,14 @@ def device_ms(fn, reps=10):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = [e.device_time for e in prof.events()
-          if e.device_type == torch.autograd.DeviceType.CUDA]
-    return sum(us) / 1e3 / reps if us else None
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    total = sum(e.device_time for e in events) / 1e3 / reps if events \
+        else None
+    if name is None:
+        return total
+    part = sum(e.device_time for e in events if name in e.name) / 1e3 / reps
+    return total, part if events else None
 
 
 def rel_err(got, ref):
@@ -194,18 +205,50 @@ def k1_cases(dev):
     return [(n, i.to(dev), x.to(dev), T) for n, i, x, T in cases]
 
 
-def main_path_rows(spec, dev, n_samples=65536):
-    """The encoder backward's K1 input at the main-path shape: corner rows
-    and bf16 rows w_c * grad_out of n_samples points."""
+def main_path_rows(spec, dev, order, n_rays=4096, per_ray=16):
+    """The encoder backward's K1 input at the main-path shape, as the
+    backward passes it: corner rows [n, L * 8] and bf16 rows w_c * grad_out
+    [n, L * 8, C] of n = n_rays * per_ray points in [0, 1]^3. order
+    "uniform": independent uniform points; "rays": n_rays random rays, each
+    per_ray consecutive samples at the march step 2 sqrt(3) / 256 of the
+    [-1, 1] cube (half that in these coordinates), in (ray, slot) order as
+    the compaction packs them."""
     from laenerf_tpu_torch.ops.hashgrid import _octo_corners
 
+    n = n_rays * per_ray
     g = torch.Generator(device=dev).manual_seed(1)
-    u = torch.rand((n_samples, 3), generator=g, device=dev)
+    if order == "uniform":
+        u = torch.rand((n, 3), generator=g, device=dev)
+    else:
+        step = math.sqrt(3.0) / 256
+        reach = step * (per_ray - 1)
+        start = reach + (1 - 2 * reach) * torch.rand((n_rays, 1, 3),
+                                                     generator=g, device=dev)
+        d = torch.randn((n_rays, 1, 3), generator=g, device=dev)
+        d = d / d.norm(dim=-1, keepdim=True)
+        slots = torch.arange(per_ray, device=dev)[None, :, None]
+        u = (start + step * slots * d).reshape(n, 3)
     idx, w = _octo_corners(spec, u)
-    grad_out = torch.randn((n_samples, spec.num_levels, spec.level_dim),
+    grad_out = torch.randn((n, spec.num_levels, spec.level_dim),
                            generator=g, device=dev)
     rows = (w[..., None] * grad_out[:, :, None, :]).to(torch.bfloat16)
-    return idx.reshape(-1), rows.reshape(-1, spec.level_dim)
+    return idx.reshape(n, -1), rows.reshape(n, -1, spec.level_dim)
+
+
+def k1_reds(idx, table_rows, C):
+    """The atomic adds K1 issues on idx: one per run of one in-range row
+    that a lane sums down its column within a span of RUN_SPAN rows (a 1-D
+    idx split into rows of ROW_SPLIT), for each group of 4 channels."""
+    from laenerf_tpu_torch.ops.scatter_add import ROW_SPLIT, RUN_SPAN
+
+    if idx.dim() == 1:
+        pad = -idx.shape[0] % ROW_SPLIT
+        idx = torch.cat([idx, idx.new_full((pad,), -1)]).view(-1, ROW_SPLIT)
+    keep = (idx >= 0) & (idx < table_rows)
+    starts = torch.ones_like(keep)
+    starts[1:] = idx[1:] != idx[:-1]
+    starts[::RUN_SPAN] = True
+    return int((keep & starts).sum()) * -(-C // 4)
 
 
 def phase_k1(card, dev, model_cfg):
@@ -241,44 +284,9 @@ def phase_k1(card, dev, model_cfg):
                 f"index_add_, Q == 0 and bf16-out ok")
 
     spec = model_cfg.grid_spec
-    idx, rows = main_path_rows(spec, dev)
     T = spec.table_rows
-    got = scatter_add_rows(idx, rows, T)
-    ref = scatter_add_rows_plain(idx, rows, T)
-    torch.cuda.synchronize()
-    err = rel_err(got, ref)
-    max_abs = (got - ref).abs().max().item()
-    if not err < REL_TOL:
-        raise AssertionError(f"K1 main-path shape: rel err {err}")
-
-    def k1():
-        scatter_add_rows(idx, rows, T)
-
-    def plain():
-        scatter_add_rows_plain(idx, rows, T)
-
-    idx64, rows32 = idx.long(), rows.float()
-
-    def library():
-        torch.zeros((T, rows.shape[1]), device=dev).index_add_(0, idx64,
-                                                               rows32)
-
-    # in turns on one card: plain, library, kernel, kernel, library, plain
-    p0, l0, k0, k1_, l1, p1 = (cuda_ms(plain), cuda_ms(library), cuda_ms(k1),
-                               cuda_ms(k1), cuda_ms(library), cuda_ms(plain))
-    ms, plain_ms, library_ms = (k0 + k1_) / 2, (p0 + p1) / 2, (l0 + l1) / 2
-    dev_ms, dev_library_ms = device_ms(k1), device_ms(library)
-    # each input read once, the [T, C] f32 output written once; one f32 add
-    # per update element
-    bound_ms, bound_by = bound_of(
-        idx.numel() * 4 + rows.numel() * rows.element_size()
-        + T * rows.shape[1] * 4, n_ops=rows.numel())
-    phase("k1", f"main path: {idx.shape[0]} rows x C={rows.shape[1]} into "
-                f"{T} rows, rel err {err:.2e}; K1 {ms:.4f} ms vs plain "
-                f"{plain_ms:.4f} ms, index_add_ alone {library_ms:.4f} ms, "
-                f"bound {bound_ms:.4f} ms ({bound_by}); device time under "
-                f"the profiler: K1 {dev_ms} ms, index_add_ {dev_library_ms} "
-                f"ms ({card})")
+    inputs = k1_main_path(card, dev, spec)
+    uniform = inputs[0]
 
     # the hash-grid backward through K1 on the card against the same
     # backward on the CPU (the plain scatter-add)
@@ -296,10 +304,71 @@ def phase_k1(card, dev, model_cfg):
         raise AssertionError(f"hash-grid backward card vs CPU: {err_bwd}")
     phase("k1", f"hash-grid backward on the card vs CPU: rel err "
                 f"{err_bwd:.2e}")
-    return {"max_abs_err": max(worst, max_abs), "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms, "device_ms": dev_ms,
-            "library_device_ms": dev_library_ms}
+    return {"max_abs_err": max([worst] + [r["max_abs_err"] for r in inputs]),
+            **{k: uniform[k] for k in ("ms", "plain_ms", "bound_ms",
+                                       "bound_by", "library_ms", "device_ms",
+                                       "library_device_ms")},
+            "sites": inputs}
+
+
+def k1_main_path(card, dev, spec):
+    """K1 at the main-path shape on the uniform and the ray-ordered input
+    (main_path_rows), each within rel REL_TOL of its plain version, timed
+    against it and against index_add_ beside the bound; with the RED count
+    of each input."""
+    from laenerf_tpu_torch.ops.scatter_add import (scatter_add_rows,
+                                                   scatter_add_rows_plain)
+
+    T = spec.table_rows
+    results = []
+    for order in ("uniform", "rays"):
+        idx, rows = main_path_rows(spec, dev, order)
+        got = scatter_add_rows(idx, rows, T)
+        ref = scatter_add_rows_plain(idx, rows, T)
+        torch.cuda.synchronize()
+        err = rel_err(got, ref)
+        if not err < REL_TOL:
+            raise AssertionError(f"K1 main-path shape, {order}: rel err {err}")
+        C = rows.shape[-1]
+        idx64, rows32 = idx.reshape(-1).long(), rows.reshape(-1, C).float()
+
+        def k1():
+            scatter_add_rows(idx, rows, T)
+
+        def plain():
+            scatter_add_rows_plain(idx, rows, T)
+
+        def library():
+            torch.zeros((T, C), device=dev).index_add_(0, idx64, rows32)
+
+        # in turns on one card: plain, library, kernel, kernel, library, plain
+        t = [cuda_ms(f) for f in (plain, library, k1, k1, library, plain)]
+        ms, library_ms, plain_ms = ((t[2] + t[3]) / 2, (t[1] + t[4]) / 2,
+                                    (t[0] + t[5]) / 2)
+        (dev_ms, kernel_ms), dev_library_ms = (
+            device_ms(k1, name="scatter_add_rows_kernel"), device_ms(library))
+        # each input read once, the [T, C] f32 output written once; one f32
+        # add per update element
+        bound_ms, bound_by = bound_of(
+            idx.numel() * 4 + rows.numel() * rows.element_size() + T * C * 4,
+            n_ops=rows.numel())
+        reds = k1_reds(idx, T, C)
+        results.append({"site": order, "ms": ms, "plain_ms": plain_ms,
+                        "library_ms": library_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by, "device_ms": dev_ms,
+                        "kernel_device_ms": kernel_ms,
+                        "library_device_ms": dev_library_ms, "reds": reds,
+                        "max_abs_err": (got - ref).abs().max().item()})
+        phase("k1", f"main path, {order}: {idx.numel()} rows x C={C} as "
+                    f"{list(idx.shape)} into {T} rows, rel err {err:.2e}, "
+                    f"{reds} REDs (float4 atomics; {idx.numel() * C} scalar "
+                    f"elements); K1 {ms:.4f} ms vs plain {plain_ms:.4f} ms, "
+                    f"index_add_ alone {library_ms:.4f} ms, bound "
+                    f"{bound_ms:.4f} ms ({bound_by}); device time under the "
+                    f"profiler: K1 {dev_ms} ms (scatter_add_rows_kernel "
+                    f"{kernel_ms} ms, the rest the zero-fill), index_add_ "
+                    f"{dev_library_ms} ms ({card})")
+    return results
 
 
 def gather_sites(dev):
@@ -988,12 +1057,18 @@ def phase_profile(tr, ds, steps=4):
     busy = sum(e.device_time for e in kernels) / 1e3  # us -> ms
     if not kernels:
         phase("profile", "device time not measured (no CUDA events)")
-        return
+        return None
+    k1 = [e.device_time for e in kernels
+          if "scatter_add_rows_kernel" in e.name]
+    k1_us = sum(k1) / len(k1) if k1 else None
     phase("profile", f"{steps} train steps: {len(kernels) / steps:.0f} "
                      f"device kernels per step, device busy "
                      f"{busy / steps:.1f} ms of {1e3 * wall / steps:.1f} ms "
                      f"wall per step ({100 * busy / (1e3 * wall):.1f}%, "
-                     f"under the profiler)")
+                     f"under the profiler); K1 (scatter_add_rows_kernel) "
+                     f"{len(k1)} launches, {k1_us} us of device time per "
+                     f"launch")
+    return k1_us
 
 
 def main():
@@ -1048,7 +1123,7 @@ def main():
         phase_render(card, tr, ds)
         launches = scatter_add_rows.launches
         phase("train", f"K1 launches on the main path: {launches}")
-        phase_profile(tr, ds)
+        k1_train_us = phase_profile(tr, ds)
 
     gather_src = "laenerf_tpu_torch/csrc/gather_probes.cu"
     scatter_src = "laenerf_tpu_torch/csrc/sorted_scatter.cu"
@@ -1064,6 +1139,11 @@ def main():
         "bound_ms": k1["bound_ms"],
         "bound_by": k1["bound_by"],
         "library_ms": k1["library_ms"],
+        "device_ms": k1["device_ms"],
+        "library_device_ms": k1["library_device_ms"],
+        "train_step_device_ms": (None if k1_train_us is None
+                                 else k1_train_us / 1e3),
+        "sites": k1["sites"],
     }] + [kernel_entry(name, gather_src, gather_results, gather_launches)
           for name in ("take_rows", "take_lanes", "grid_probe")]
         + [kernel_entry(name, scatter_src, scatter_results, scatter_launches)

@@ -6,8 +6,8 @@
 // entry point here is the Hopper counterpart of one of them. Every one writes
 // an f32 [n_tiles * tile, C] output, tile k in rows [k*tile, (k+1)*tile):
 //
-//   k1 probe_prefetch_write   tile k = lo[k]: the block reads its own index
-//                             (scalar prefetch, bisect_mosaic.py:28)
+//   k1 probe_prefetch_write   tile k = lo[k]: each block reads its tile's
+//                             index (scalar prefetch, bisect_mosaic.py:28)
 //   k2 probe_static_copy      tile k = g[0 : tile] by a bulk asynchronous
 //                             copy into shared memory that completes on an
 //                             mbarrier, then a bulk copy out (static 2-D
@@ -27,7 +27,11 @@
 //   k7 probe_iota             row r of tile k = r (a 1-D iota, :190)
 //
 // What bounds them on an H100: k1-k5 and k7 the launch (outputs of 256 KB).
-// k1, k5 and k7 launch one block per tile, 8 blocks on 132 SMs. k2 and
+// k5 and k7 launch one block per tile, 8 blocks on 132 SMs. k1 spreads each
+// tile over the card, one 128-thread block per (tile, 2 KB slice of its
+// tile * C * 4 bytes), 128 blocks at the probe's shape, each thread one
+// float4 store of the value; a tile that starts or ends off 16 bytes (tile
+// * C % 4 != 0) stores its head and tail one float at a time. k2 and
 // k3 spread each tile over the card: a tile of g is one contiguous run of
 // tile * C * 4 bytes, so one block per (tile, 2 KB slice of it), 128 blocks
 // at the probe's shape, whose one thread starts a bulk load of the slice
@@ -124,12 +128,36 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
-__global__ void prefetch_write_kernel(const int32_t* __restrict__ lo,
-                                      float* __restrict__ out, int tile,
-                                      int C) {
-  const float v = (float)lo[blockIdx.x];
-  float* dst = out + (int64_t)blockIdx.x * tile * C;
-  for (int i = threadIdx.x; i < tile * C; i += blockDim.x) dst[i] = v;
+constexpr int kFillThreads = 128;  // k1: a thread stores 16 bytes
+constexpr int kFillSlice = kFillThreads * 4;  // k1: floats a block stores
+
+// k1: block b fills slice b % slices of tile k = b / slices with (float)
+// lo[k]. The tile's n = tile * C floats start at float k * n of the
+// 16-byte aligned output, so they split into a head of up to 3 floats up to
+// the first 16-byte boundary, whole float4s, and a tail of up to 3: slice
+// i stores float4s [i * kFillThreads, (i + 1) * kFillThreads) of the
+// tile's, one a thread, and slice 0 also stores the head and the tail one
+// float a thread.
+__global__ void __launch_bounds__(kFillThreads)
+    prefetch_write_kernel(const int32_t* __restrict__ lo,
+                          float* __restrict__ out, int64_t n,
+                          unsigned slices) {
+  const unsigned k = blockIdx.x / slices;
+  const int64_t slice = blockIdx.x - (int64_t)k * slices;
+  const float v = (float)__ldg(lo + k);
+  float* dst = out + (int64_t)k * n;
+  const int64_t to16 = (int64_t)((4 - ((uintptr_t)dst >> 2)) & 3);
+  const int64_t head = to16 < n ? to16 : n;
+  const int64_t n4 = (n - head) >> 2;  // whole float4s
+  const int64_t i = slice * kFillThreads + threadIdx.x;
+  if (i < n4) {
+    reinterpret_cast<float4*>(dst + head)[i] = make_float4(v, v, v, v);
+  }
+  if (slice == 0 && threadIdx.x < 3) {
+    const int64_t tail = n - head - 4 * n4;  // both at most 3
+    if (threadIdx.x < head) dst[threadIdx.x] = v;
+    if (threadIdx.x < tail) dst[head + 4 * n4 + threadIdx.x] = v;
+  }
 }
 
 constexpr int kSlice = 2048;  // k2, k3: bytes of a tile a block copies
@@ -399,10 +427,14 @@ int onehot_dot(const void* local, const void* g, void* out,
 extern "C" int probe_prefetch_write(const void* lo, void* out,
                                     long long n_tiles, int tile, int C,
                                     void* stream) {
-  if (n_tiles <= 0) return (int)cudaSuccess;
-  prefetch_write_kernel<<<(unsigned)n_tiles, kThreads, 0,
-                          (cudaStream_t)stream>>>((const int32_t*)lo,
-                                                  (float*)out, tile, C);
+  const long long n = (long long)tile * C;
+  if (n_tiles <= 0 || n <= 0) return (int)cudaSuccess;
+  // enough float4s for the tile's body at any offset, and slice 0 at least
+  const long long slices = (n + kFillSlice - 1) / kFillSlice;
+  if (n_tiles * slices > INT_MAX) return (int)cudaErrorInvalidConfiguration;
+  prefetch_write_kernel<<<(unsigned)(n_tiles * slices), kFillThreads, 0,
+                          (cudaStream_t)stream>>>(
+      (const int32_t*)lo, (float*)out, (int64_t)n, (unsigned)slices);
   return (int)cudaGetLastError();
 }
 

@@ -17,6 +17,7 @@ them; each writes an f32 [n_tiles * tile, C] output, tile k in rows
                                              k6b is C = 128
   k7  iota_rows(n_tiles, tile, C)            row r of tile k = r
 
+k1 fills each tile in 2 KB slices, one block each, with 16-byte stores;
 k2-k4 are bulk asynchronous copies into shared memory that complete on an
 mbarrier (k2 and k3 one block per 2 KB slice of a tile, stored back with a
 bulk copy out; k4 one block per 64 rows of a tile, converted and stored

@@ -212,8 +212,12 @@ class _HashGridGather(torch.autograd.Function):
         g = torch.where(keep[:, None, None], grad_out.to(torch.float32), 0.0)
         C = g.shape[-1]
         rows = (w[..., None] * g[:, :, None, :]).to(torch.bfloat16)
-        grad = scatter_add_rows(idx.reshape(-1), rows.reshape(-1, C),
-                                ctx.table_rows, precision="bf16")
+        # [samples, levels x corners]: consecutive samples of a ray often
+        # share a coarse level's corner row, and K1 sums such runs first
+        B, L, _ = idx.shape
+        grad = scatter_add_rows(idx.reshape(B, L * 8),
+                                rows.reshape(B, L * 8, C), ctx.table_rows,
+                                precision="bf16")
         return grad, None, None, None, None
 
 

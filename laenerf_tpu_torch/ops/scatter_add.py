@@ -5,9 +5,11 @@
 Counterpart of laenerf_tpu/ops/scatter_add.py. The TPU kernel there sorts the
 updates and accumulates (table tile, update block) work items with one-hot MXU
 matmuls, because XLA's TPU scatter serializes. On the H100 the same function
-is a CUDA kernel of f32 atomics (csrc/scatter_add.cu, which also says what
-bounds it on the card). `scatter_add_rows_plain` computes the same function
-with `index_add_`; the wrapper uses it only for tensors on the CPU.
+is a CUDA kernel of f32 vector atomics (csrc/scatter_add.cu, which also
+says what bounds it on the card): a thread owns whole update rows, and runs
+of one row down a column of a 2-D idx [S, P] are summed in registers before
+one atomic add. `scatter_add_rows_plain` computes the same function with
+`index_add_`; the wrapper uses it only for tensors on the CPU.
 """
 
 import torch
@@ -15,15 +17,17 @@ import torch
 from .cuda_build import I32, I64, P, launch
 
 _SOURCE = "scatter_add.cu"
+RUN_SPAN = 16  # rows of a column one lane walks (a ray's m_cap_per_ray)
+ROW_SPLIT = 32  # a 1-D idx [Q] runs as [ceil(Q / 32), 32]
 
 
 def scatter_add_rows_plain(idx, g, table_rows: int, *,
                            precision: str = "bf16", out_dtype=None):
     """Plain PyTorch version of K1 (f32 `index_add_`)."""
     _check_args(idx, g, table_rows, precision)
-    rows = _rows(g, precision).float()
-    out = torch.zeros((table_rows, g.shape[1]), dtype=torch.float32,
-                      device=g.device)
+    C = g.shape[-1]
+    idx, rows = idx.reshape(-1), _rows(g, precision).float().reshape(-1, C)
+    out = torch.zeros((table_rows, C), dtype=torch.float32, device=g.device)
     keep = (idx >= 0) & (idx < table_rows)
     out.index_add_(0, idx[keep].long(), rows[keep])
     return out if out_dtype in (None, torch.float32) else out.to(out_dtype)
@@ -34,9 +38,13 @@ def scatter_add_rows(idx, g, table_rows: int, *, precision: str = "bf16",
     """grad[t, c] = sum over updates q with idx[q] == t of g[q, c].
 
     Args:
-      idx: [Q] int32 destination rows, any order and duplication; rows
-        outside [0, table_rows) are dropped.
-      g: [Q, C] float32 or bfloat16 update rows.
+      idx: [Q] or [S, P] int32 destination rows, any order and
+        duplication; rows outside [0, table_rows) are dropped. The 2-D form
+        computes the same function as its flattening; it says that rows
+        tend to repeat down a column (the backward's [samples, levels x
+        corners], samples in ray order), and the kernel sums such runs
+        before it adds them.
+      g: [Q, C] (or [S, P, C]) float32 or bfloat16 update rows.
       table_rows: T, number of output rows.
       precision: "bf16" rounds each update row to bf16 before the f32
         accumulation (the reference's default); "f32" accumulates the rows
@@ -63,13 +71,14 @@ def scatter_add_rows(idx, g, table_rows: int, *, precision: str = "bf16",
     rows = _rows(g, precision)
     if not (idx.is_contiguous() and rows.is_contiguous()):
         raise ValueError("scatter_add_rows: idx and g must be contiguous")
-    Q, C = rows.shape
+    Q, C = idx.numel(), rows.shape[-1]
+    S, cols = idx.shape if idx.dim() == 2 else (-(-Q // ROW_SPLIT), ROW_SPLIT)
     out = torch.zeros((table_rows, C), dtype=torch.float32, device=g.device)
     if Q > 0:
         name = ("scatter_add_rows_bf16" if rows.dtype == torch.bfloat16
                 else "scatter_add_rows_f32")
-        launch(_SOURCE, name, [P, P, P, I64, I32, I64], idx, rows, out, Q,
-               C, table_rows)
+        launch(_SOURCE, name, [P, P, P, I64, I64, I64, I32, I64, I32], idx,
+               rows, out, S, cols, Q, C, table_rows, RUN_SPAN)
         scatter_add_rows.launches += 1
     return out if out_dtype in (None, torch.float32) else out.to(out_dtype)
 
@@ -86,8 +95,10 @@ def _rows(g, precision):
 def _check_args(idx, g, table_rows, precision):
     if precision not in ("bf16", "f32"):
         raise ValueError(f"precision must be 'bf16' or 'f32', got {precision}")
-    if g.dim() != 2 or idx.dim() != 1 or idx.shape[0] != g.shape[0]:
-        raise ValueError(f"scatter_add_rows: want idx [Q] and g [Q, C], got "
+    if idx.dim() not in (1, 2) or g.dim() != idx.dim() + 1 \
+            or g.shape[:-1] != idx.shape:
+        raise ValueError(f"scatter_add_rows: want idx [Q] and g [Q, C], or "
+                         f"idx [S, P] and g [S, P, C], got "
                          f"{tuple(idx.shape)} and {tuple(g.shape)}")
     if g.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"scatter_add_rows: g must be float32 or bfloat16, "

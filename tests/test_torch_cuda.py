@@ -22,7 +22,7 @@ from laenerf_tpu_torch.ops.gather import (grid_probe, grid_probe_plain,
                                           take_lanes, take_lanes_plain,
                                           take_rows, take_rows_plain)
 from laenerf_tpu_torch.ops.hashgrid import HashGridSpec, hashgrid_encode
-from laenerf_tpu_torch.ops.scatter_add import (scatter_add_rows,
+from laenerf_tpu_torch.ops.scatter_add import (RUN_SPAN, scatter_add_rows,
                                                scatter_add_rows_plain)
 from laenerf_tpu_torch.ops.sorted_scatter import (build_worklist, sort_stage,
                                                   tile_scatter,
@@ -93,6 +93,56 @@ def test_scatter_add_kernel_edges(cuda):
         scatter_add_rows(idx.long(), g, 6)
     with pytest.raises(ValueError):
         scatter_add_rows(idx, g.t(), 6)  # shape [2, 5]
+
+
+def _k1_layout(rng, layout, C, dtype, dev):
+    """(idx, g) on the card for one layout: "1d" Q rows, Q off the 32-row
+    split; "2d" [S, P] with runs of one row down each column, S off the
+    span and P off 32 columns; "2d_view" the same as contiguous views 4
+    bytes into their storage (g's rows then off 16 bytes)."""
+    S, P, T = 3 * RUN_SPAN + 5, 40, 700
+    idx = np.repeat(rng.randint(-3, T + 3, (S // 4 + 1, P)), 4, axis=0)[:S]
+    idx[rng.rand(S, P) < 0.2] = rng.randint(0, T)  # runs cut short
+    g = rng.randn(S, P, C)
+    if layout == "1d":
+        idx, g = idx.reshape(-1)[:-13], g.reshape(-1, C)[:-13]
+    if layout != "2d_view":
+        return (torch.from_numpy(idx.astype(np.int32)).to(dev),
+                torch.tensor(g, dtype=dtype, device=dev), T)
+    k = 4 // torch.tensor([], dtype=dtype).element_size()
+    flat_i = torch.zeros(idx.size + 1, dtype=torch.int32, device=dev)
+    flat_i[1:] = torch.from_numpy(idx.astype(np.int32).reshape(-1))
+    flat_g = torch.zeros(g.size + k, dtype=dtype, device=dev)
+    flat_g[k:] = torch.tensor(g.reshape(-1), dtype=dtype)
+    return flat_i[1:].view(S, P), flat_g[k:].view(S, P, C), T
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["1d", "2d", "2d_view"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("C", [1, 2, 3, 4, 8, 12])
+def test_scatter_add_kernel_widths_and_layouts(cuda, C, dtype, layout):
+    """K1's float4 / float2 / scalar REDs (C 1-12, views whose rows leave
+    16 bytes) and its run merge down the columns of a 2-D idx, with
+    out-of-range rows inside runs, against the plain version."""
+    tdt = torch.float32 if dtype == "f32" else torch.bfloat16
+    idx, g, T = _k1_layout(np.random.RandomState(C), layout, C, tdt, cuda)
+    assert idx.is_contiguous() and g.is_contiguous()
+    for precision in ("f32", "bf16"):
+        before = scatter_add_rows.launches
+        got = scatter_add_rows(idx, g, T, precision=precision)
+        ref = scatter_add_rows_plain(idx, g, T, precision=precision)
+        torch.cuda.synchronize()
+        assert scatter_add_rows.launches == before + 1
+        assert got.shape == (T, C)
+        assert _rel_err(got, ref) < REL_TOL, precision
+    before = scatter_add_rows.launches
+    for shape in ((0,), (0, 40)):
+        empty = scatter_add_rows(
+            torch.zeros(shape, dtype=torch.int32, device=cuda),
+            torch.zeros(shape + (C,), dtype=tdt, device=cuda), 100)
+        assert empty.shape == (100, C) and not empty.any()
+    assert scatter_add_rows.launches == before  # Q == 0 launches nothing
 
 
 @pytest.mark.cuda
@@ -560,3 +610,25 @@ def test_copy_1d_matches_plain(cuda, tile, C, n_tiles):
                 + torch.arange(tile, device=cuda)).reshape(-1)
         assert torch.equal(got, torch.take(q, rows[:, None].expand(-1, C))
                            .float())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [1, 3, 8])
+@pytest.mark.parametrize("tile", [1, 100, 1024])
+def test_prefetch_write_matches_plain(cuda, tile, C):
+    """K7 k1, one block per (tile, 2 KB slice) with float4 stores: tiles of
+    4 B to 32 KB whose starts leave 16 bytes (tile * C % 4 != 0), so each
+    has a scalar head and tail. Equal to the plain version and to
+    repeat_interleave."""
+    rng = np.random.RandomState(tile + C)
+    n_tiles = 7
+    lo = torch.tensor(rng.randint(-2 ** 24, 2 ** 24, n_tiles + 2),
+                      dtype=torch.int32, device=cuda)
+    before = cp.prefetch_write.launches
+    got = cp.prefetch_write(lo, n_tiles, tile, C)
+    torch.cuda.synchronize()
+    assert cp.prefetch_write.launches == before + 1
+    assert torch.equal(got, cp.prefetch_write_plain(lo, n_tiles, tile, C))
+    lib = torch.repeat_interleave(lo[:n_tiles, None].expand(n_tiles, C),
+                                  tile, dim=0)
+    assert torch.equal(got, lib.float())
