@@ -67,6 +67,7 @@ the final {"ok": true, "device": ...} line.
 Imports torch and the port only, never JAX.
 """
 
+import contextlib
 import json
 import math
 import re
@@ -236,19 +237,33 @@ def main_path_rows(spec, dev, order, n_rays=4096, per_ray=16):
 
 
 def k1_reds(idx, table_rows, C):
-    """The atomic adds K1 issues on idx: one per run of one in-range row
-    that a lane sums down its column within a span of RUN_SPAN rows (a 1-D
-    idx split into rows of ROW_SPLIT), for each group of 4 channels."""
-    from laenerf_tpu_torch.ops.scatter_add import ROW_SPLIT, RUN_SPAN
+    """A model of the atomic adds K1 issues on idx, computed on the host
+    from the input (not read from the card): one per run of one in-range
+    row that a lane sums down a column of a 2-D idx within a span of
+    RUN_SPAN rows, one per in-range row of a 1-D idx, for each group of 4
+    channels."""
+    from laenerf_tpu_torch.ops.scatter_add import RUN_SPAN
 
-    if idx.dim() == 1:
-        pad = -idx.shape[0] % ROW_SPLIT
-        idx = torch.cat([idx, idx.new_full((pad,), -1)]).view(-1, ROW_SPLIT)
     keep = (idx >= 0) & (idx < table_rows)
     starts = torch.ones_like(keep)
-    starts[1:] = idx[1:] != idx[:-1]
-    starts[::RUN_SPAN] = True
+    if idx.dim() == 2:
+        starts[1:] = idx[1:] != idx[:-1]
+        starts[::RUN_SPAN] = True
     return int((keep & starts).sum()) * -(-C // 4)
+
+
+@contextlib.contextmanager
+def k1_span(span):
+    """K1 with `span` rows a lane walks down a 2-D idx's column, for the
+    comparisons that choose RUN_SPAN; restored on exit."""
+    from laenerf_tpu_torch.ops import scatter_add
+
+    kept = scatter_add.RUN_SPAN
+    scatter_add.RUN_SPAN = span
+    try:
+        yield
+    finally:
+        scatter_add.RUN_SPAN = kept
 
 
 def phase_k1(card, dev, model_cfg):
@@ -315,7 +330,7 @@ def k1_main_path(card, dev, spec):
     """K1 at the main-path shape on the uniform and the ray-ordered input
     (main_path_rows), each within rel REL_TOL of its plain version, timed
     against it and against index_add_ beside the bound; with the RED count
-    of each input."""
+    that k1_reds models for each input."""
     from laenerf_tpu_torch.ops.scatter_add import (scatter_add_rows,
                                                    scatter_add_rows_plain)
 
@@ -357,12 +372,14 @@ def k1_main_path(card, dev, spec):
                         "library_ms": library_ms, "bound_ms": bound_ms,
                         "bound_by": bound_by, "device_ms": dev_ms,
                         "kernel_device_ms": kernel_ms,
-                        "library_device_ms": dev_library_ms, "reds": reds,
+                        "library_device_ms": dev_library_ms,
                         "max_abs_err": (got - ref).abs().max().item()})
         phase("k1", f"main path, {order}: {idx.numel()} rows x C={C} as "
                     f"{list(idx.shape)} into {T} rows, rel err {err:.2e}, "
-                    f"{reds} REDs (float4 atomics; {idx.numel() * C} scalar "
-                    f"elements); K1 {ms:.4f} ms vs plain {plain_ms:.4f} ms, "
+                    f"{reds} float4 REDs as k1_reds models them (computed "
+                    f"from the input, not measured; {idx.numel() * C} "
+                    f"scalar elements); K1 {ms:.4f} ms vs plain "
+                    f"{plain_ms:.4f} ms, "
                     f"index_add_ alone {library_ms:.4f} ms, bound "
                     f"{bound_ms:.4f} ms ({bound_by}); device time under the "
                     f"profiler: K1 {dev_ms} ms (scatter_add_rows_kernel "
@@ -1071,6 +1088,30 @@ def phase_profile(tr, ds, steps=4):
     return k1_us
 
 
+def k1_span_turns(tr, ds, spans=(1, 16, 32, 64), steps=4):
+    """K1's device time per launch inside train steps at each of `spans`
+    (rows a lane walks down the backward's [samples, 64] idx), in turns:
+    the spans in order, then reversed, `steps` profiled steps each."""
+    from torch.profiler import ProfilerActivity, profile
+
+    times = {span: [] for span in spans}
+    for span in spans + spans[::-1]:
+        batches = [ds.get_batch(i % len(ds)) for i in range(steps)]
+        torch.cuda.synchronize()
+        with k1_span(span), profile(activities=[ProfilerActivity.CUDA]) as p:
+            for b in batches:
+                tr.train_one_batch(b, has_alpha=True)
+            torch.cuda.synchronize()
+        k1 = [e.device_time for e in p.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and "scatter_add_rows_kernel" in e.name]
+        times[span].append(sum(k1) / len(k1) if k1 else None)
+    phase("profile", "K1 (scatter_add_rows_kernel) us of device time per "
+                     "launch inside train steps, by span, in turns: "
+                     + ", ".join(f"span {s} {t}" for s, t in times.items()))
+    return times
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on a GPU",
@@ -1124,6 +1165,7 @@ def main():
         launches = scatter_add_rows.launches
         phase("train", f"K1 launches on the main path: {launches}")
         k1_train_us = phase_profile(tr, ds)
+        k1_span_turns(tr, ds)
 
     gather_src = "laenerf_tpu_torch/csrc/gather_probes.cu"
     scatter_src = "laenerf_tpu_torch/csrc/sorted_scatter.cu"

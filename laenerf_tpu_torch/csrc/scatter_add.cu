@@ -14,8 +14,9 @@
 // in L2 and, for the rows L2 does not hold, in HBM; the card resolves a few
 // tens of G such REDs a second (PERF.md), so their count sets the time.
 // The first port ran a thread per (row, channel) element, a 64-bit
-// division and a scalar RED each (the four adds of a row reached L2 as one
-// sector request). This design:
+// division and a scalar RED each (a row's four adds came from neighbouring
+// lanes of one instruction, so L2 probably saw them as one sector request;
+// no counter on the card confirms it). This design:
 //   - A thread owns whole update rows, kGroup = 4 channels of them: it loads
 //     a row's group in one access (8 B of bf16 or 16 B of f32 at C = 4) and
 //     adds it with one vector RED, float4 atomicAdd (sm_90's
@@ -31,7 +32,8 @@
 //     summing in f32 registers while the index stays the same; it adds the
 //     sum when the index changes and at the end of its span. An
 //     out-of-range index drops its row and ends a run. A 1-D idx is split
-//     into rows of 32 (P = 32, the last row cut at Q).
+//     into rows of 32 (P = 32, the last row cut at Q) and walked with a
+//     span of 1: a lane per update row.
 //   - The lanes that share a column hold its channel groups side by side,
 //     so they meet the same run ends together and their REDs to one row
 //     leave in one instruction (at C = 8 two float4 REDs to one 32-byte

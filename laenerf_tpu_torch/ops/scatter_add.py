@@ -17,8 +17,10 @@ import torch
 from .cuda_build import I32, I64, P, launch
 
 _SOURCE = "scatter_add.cu"
-RUN_SPAN = 16  # rows of a column one lane walks (a ray's m_cap_per_ray)
-ROW_SPLIT = 32  # a 1-D idx [Q] runs as [ceil(Q / 32), 32]
+# rows of a 2-D idx's column one lane walks, summing runs of one row
+# (chosen by K1's time inside train steps, PERF.md)
+RUN_SPAN = 16
+ROW_SPLIT = 32  # a 1-D idx [Q] runs as [ceil(Q / 32), 32], a row a lane
 
 
 def scatter_add_rows_plain(idx, g, table_rows: int, *,
@@ -77,8 +79,10 @@ def scatter_add_rows(idx, g, table_rows: int, *, precision: str = "bf16",
     if Q > 0:
         name = ("scatter_add_rows_bf16" if rows.dtype == torch.bfloat16
                 else "scatter_add_rows_f32")
+        # a 1-D idx says nothing of repeats, so each lane takes one row
+        span = RUN_SPAN if idx.dim() == 2 else 1
         launch(_SOURCE, name, [P, P, P, I64, I64, I64, I32, I64, I32], idx,
-               rows, out, S, cols, Q, C, table_rows, RUN_SPAN)
+               rows, out, S, cols, Q, C, table_rows, span)
         scatter_add_rows.launches += 1
     return out if out_dtype in (None, torch.float32) else out.to(out_dtype)
 
