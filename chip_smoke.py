@@ -9,7 +9,10 @@ Phases, one or more lines each, tagged with the seconds since the start
      csrc/gather_probes.cu: K2-K4; csrc/sorted_scatter.cu: K5, K6;
      csrc/construct_probes.cu: K7) with nvcc, one process per source, all
      started together; prints the registers, shared memory and spill
-     stores of K1's, K3's and K7 k1's and k4's kernels.
+     stores of K1's, K2's, K3's, K4's and K7 k1's and k4's kernels, and
+     what cuobjdump -sass shows of the gather kernels (instances with a
+     16-byte store and a 16-byte load, and calls such as a 64-bit
+     division routine).
   3. K1 against its plain PyTorch version on the card: the cases of the
      JAX package's scatter-add tests; the main-path shape (65,536 samples x
      8 levels x 8 corners of the L8C4 lg19 grid, passed as the backward
@@ -22,9 +25,10 @@ Phases, one or more lines each, tagged with the seconds since the start
      x4; P4, P4b, P6), each equal to its plain version and to the PyTorch
      call for the same function (torch.equal), timed against both (plain,
      library, kernel, kernel, library, plain) beside its bound, and its
-     device time under the profiler. Then K3 at ragged shapes, untimed (N
-     off the 16-byte chunks, one-row tables, views 4 bytes into their
-     storage), equal to its plain version and to torch.gather.
+     device time under the profiler. Then K2, K3 and K4 at ragged shapes,
+     untimed (widths, N and lanes off the 16-byte chunks, one-row tables,
+     index arrays and tables as views 4 bytes into their storage, each
+     dtype), each equal to its plain version and to the PyTorch call.
   5. probes: the two gather-probe entry points (laenerf_tpu_torch.perf.
      microbench_pallas and microbench_gather, --n 16), with the launch
      counts of K2-K4 set to 0 before and read after; each must launch.
@@ -71,11 +75,13 @@ import contextlib
 import json
 import math
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -92,8 +98,11 @@ F32_OPS_PER_S = 67e12
 BF16_TC_OPS_PER_S = 989e12  # dense bf16 on the tensor cores
 SECTOR = 32  # bytes: the unit in which L2 and HBM serve a random read
 # kernels whose registers, shared memory and spills the build phase prints
-REPORTED_KERNELS = ("take_lanes_kernel", "copy_1d_kernel",
+REPORTED_KERNELS = ("take_rows_kernel", "take_lanes_kernel",
+                    "grid_probe_kernel", "copy_1d_kernel",
                     "scatter_add_rows_kernel", "prefetch_write_kernel")
+GATHER_KERNELS = ("take_rows_kernel", "take_lanes_kernel",
+                  "grid_probe_kernel")
 
 
 START = time.perf_counter()
@@ -129,6 +138,33 @@ def ptxas_kernels(report, names):
             found.append((name, int(m.group(1)), spill,
                           int(smem.group(1)) if smem else 0))
     return found
+
+
+def sass_counts(library, names):
+    """For each kernel name, from `cuobjdump -sass` of the built library:
+    its instances and how many of them hold a 16-byte global store
+    (STG.E.128) and a 16-byte global load (LDG.E.128...), and its CALL
+    instructions (a 64-bit division or modulo is a call to a routine).
+    None where the toolkit has no cuobjdump."""
+    from laenerf_tpu_torch.ops.cuda_build import _nvcc
+
+    tool = shutil.which("cuobjdump", path=str(Path(_nvcc()).parent))
+    if tool is None:
+        return None
+    sass = subprocess.run([tool, "-sass", library], capture_output=True,
+                          text=True, check=True).stdout
+    counts = {n: {"instances": 0, "stg128": 0, "ldg128": 0, "calls": 0}
+              for n in names}
+    for func in sass.split("Function : ")[1:]:
+        name = next((n for n in names if n in func.split("\n", 1)[0]), None)
+        if name is None:
+            continue
+        c = counts[name]
+        c["instances"] += 1
+        c["stg128"] += "STG.E.128" in func
+        c["ldg128"] += "LDG.E.128" in func
+        c["calls"] += len(re.findall(r"\bCALL\.", func))
+    return counts
 
 
 def cuda_ms(fn, reps=20):
@@ -509,52 +545,78 @@ def phase_gather(card, dev):
                         f"({n_bytes} B, {bound_by}); device time under the "
                         f"profiler: kernel {dev_ms} ms, library "
                         f"{dev_library_ms} ms ({card})")
-    calls = take_lanes_ragged(dev)
-    phase("gather", f"take_lanes ragged shapes (N 1, 15, 17, 777 and 16384; "
-                    f"one-row and [64x40] tables; views 4 bytes into their "
-                    f"storage; f32, int32, int8; broadcast and per-row "
-                    f"idx): {calls} calls, each equal to plain and "
-                    f"torch.gather")
+    calls = gather_ragged(dev, plains)
+    phase("gather", f"ragged shapes (take_rows W 1, 3, 8, 17, 128, 200; "
+                    f"take_lanes N 1, 15, 17, 777, 16384, one-row tables, "
+                    f"broadcast and per-row idx; grid_probe lanes 1, 3, 4, "
+                    f"16, 17, 128; tables and indices as views 4 bytes into "
+                    f"their storage; f32, int32, int8, int8->int32): calls "
+                    f"{calls}, each equal to plain and the library call")
     return results
 
 
-def take_lanes_ragged(dev):
-    """K3 at ragged shapes, untimed: rows off 16-byte boundaries (N % V !=
-    0, the kernel's scalar path), a one-row table, and idx and tbl as
-    contiguous views 4 bytes into their storage, for each dtype, with a
-    broadcast and a per-row index; each equal to its plain version and to
-    torch.gather. Returns the number of calls."""
-    from laenerf_tpu_torch.ops.gather import take_lanes, take_lanes_plain
+def gather_ragged(dev, plains):
+    """K2, K3 and K4 at ragged shapes, untimed: widths, N and lanes off the
+    16-byte chunks (the kernels' scalar path), one-row tables, and tables
+    and index arrays as contiguous views 4 bytes into their storage (index
+    views take the scalar path too), for each dtype; each call equal to
+    its plain version and to the PyTorch call for the same function.
+    Returns the number of calls per kernel."""
+    from laenerf_tpu_torch.ops.gather import grid_probe, take_lanes, take_rows
 
     gen = torch.Generator(device=dev).manual_seed(9)
-    calls = 0
-    for dtype in (torch.float32, torch.int32, torch.int8):
-        for R, N, L in ((1, 17, 300), (3, 777, 5000), (64, 15, 40),
-                        (2, 1, 1), (5, 16384, 70000)):
-            for idx_rows in (1, R):
-                for view in (False, True):
-                    k = 4 // torch.tensor([], dtype=dtype).element_size() \
-                        if view else 0
-                    n = R * L + k
-                    flat = (torch.randn(n, generator=gen, device=dev)
-                            if dtype == torch.float32 else
-                            torch.randint(-128, 128, (n,), generator=gen,
-                                          device=dev, dtype=dtype))
-                    tbl = flat[k:].view(R, L)
-                    j = int(view)
-                    idx = torch.randint(0, L, (idx_rows * N + j,),
-                                        generator=gen, device=dev,
-                                        dtype=torch.int32)[j:].view(
-                                            idx_rows, N)
-                    got = take_lanes(tbl, idx)
-                    lib = torch.gather(tbl, 1, idx.long().expand(R, -1))
-                    if not (torch.equal(got, take_lanes_plain(tbl, idx))
-                            and torch.equal(got, lib)):
-                        raise AssertionError(
-                            f"take_lanes ragged {dtype} [{R}x{L}] N={N} "
-                            f"idx rows {idx_rows} view {view}: differs from "
-                            f"its plain version or torch.gather")
-                    calls += 1
+    i8, i32 = torch.int8, torch.int32
+
+    def view(shape, dtype, offset, high=None):
+        """Random values of shape, as a view `offset` bytes into its
+        storage."""
+        k = offset // torch.tensor([], dtype=dtype).element_size()
+        n = math.prod(shape) + k
+        if high is not None:
+            flat = torch.randint(0, high, (n,), generator=gen, device=dev,
+                                 dtype=dtype)
+        elif dtype == torch.float32:
+            flat = torch.randn(n, generator=gen, device=dev)
+        else:
+            flat = torch.randint(-128, 128, (n,), generator=gen, device=dev,
+                                 dtype=dtype)
+        return flat[k:].view(shape)
+
+    cases = []
+    for dtype in (torch.float32, i32, i8):
+        for off in (0, 4):
+            for R, Q, W in ((300, 5, 1), (300, 7, 3), (1, 9, 8),
+                            (4096, 100, 17), (70, 33, 200), (50, 64, 128)):
+                cases.append((take_rows, (view((R, W), dtype, off),
+                                          view((Q, W), i32, off, R)), {}))
+            for R, N, L in ((1, 17, 300), (3, 777, 5000), (64, 15, 40),
+                            (2, 1, 1), (5, 16384, 70000)):
+                for idx_rows in (1, R):
+                    cases.append((take_lanes, (
+                        view((R, L), dtype, off),
+                        view((idx_rows, N), i32, off, L)), {}))
+    for din, dout in ((torch.float32, torch.float32), (i32, i32), (i8, i8),
+                      (i8, i32)):
+        for off in (0, 4):
+            for R, C, Q, lanes in ((40, 30, 1000, 1), (40, 30, 1000, 3),
+                                   (8, 2000, 500, 4), (64, 64, 100, 16),
+                                   (1, 5, 17, 17), (4096, 96, 333, 128)):
+                cases.append((grid_probe, (
+                    view((R, C), din, off), view((Q,), i32, off, R),
+                    view((Q,), i32, off, C)),
+                    {"lanes": lanes, "out_dtype": dout}))
+    calls = dict.fromkeys((k.__name__ for k, _, _ in cases), 0)
+    for kernel, args, kw in cases:
+        got = kernel(*args, **kw)
+        lib = gather_library_and_cells(kernel, args, kw)[0]()
+        if not (torch.equal(got, plains[kernel](*args, **kw)) and torch.equal(
+                got, lib.to(got.dtype).reshape(got.shape))):
+            raise AssertionError(
+                f"{kernel.__name__} ragged {[tuple(a.shape) for a in args]} "
+                f"{[a.dtype for a in args]} offsets "
+                f"{[a.storage_offset() for a in args]} {kw}: differs from "
+                f"its plain version or the library call")
+        calls[kernel.__name__] += 1
     return calls
 
 
@@ -1144,6 +1206,13 @@ def main():
             phase("build", f"ptxas {name}: {regs} registers, {smem} B "
                            f"shared memory, {spill} B spill stores")
     phase("build", f"all sources in {time.perf_counter() - t0:.1f} s")
+    sass = sass_counts(cuda_build.build_info["gather_probes.cu"]["path"],
+                       GATHER_KERNELS)
+    phase("build", "cuobjdump -sass of gather_probes.cu: " + (
+        "no cuobjdump" if sass is None else "; ".join(
+            f"{n} {c['instances']} instances, STG.E.128 in {c['stg128']}, "
+            f"LDG.E.128 in {c['ldg128']}, {c['calls']} CALL"
+            for n, c in sass.items())))
 
     model_cfg = NeRFConfig(bound=1.0, num_levels=8, level_dim=4,
                            log2_hashmap_size=19)

@@ -22,18 +22,29 @@
 // What bounds them on an H100: bytes. There is no arithmetic. Each output
 // element is one random 4-byte or 1-byte read from a table that sits in the
 // 50 MB L2 (the largest, P4's [16384, 128] int32 grid, is 8 MB), beside
-// coalesced index reads and output writes. K2 and K4 are one thread per
-// output element with a grid-stride loop. K3 gives each thread a chunk of
-// V = 16 / sizeof(T) consecutive outputs of a row (16 int8, 4 f32 or
-// int32): it reads the chunk's V indices with 16-byte loads, issues all V
-// table reads before it uses one, and writes the chunk with one 16-byte
-// store. The grid is 2-D (chunks of a row by rows), so no thread divides;
-// it is capped at about one wave of the card, and a thread then walks rows
-// (with a broadcast index row, s = 0, its indices stay in registers). A
-// call whose rows do not start on 16-byte boundaries (N % V != 0) or whose
-// idx is a view at an offset off a 16-byte boundary takes the scalar path
-// for the whole call: the same chunks of V, read and written one element
-// at a time, V apart, so that each warp access stays coalesced.
+// coalesced index reads and output writes. A random read still moves a
+// whole 32-byte sector from L2 to the SM, so K2 cannot reach a bound that
+// counts each distinct sector once (P1: 16.8 MB of sectors move against
+// 4.2 MB of table). All three give a thread a chunk of 16 bytes of output,
+// V = 16 / sizeof(T) consecutive outputs of one row (16 int8, 4 f32 or
+// int32), on one launch shape (chunk_grid): a 2-D grid of chunks of a row
+// by rows, so no thread divides, capped at about one wave of the card,
+// after which a thread walks rows. A row of fewer than 32 chunks (K2 int8
+// at W = 128: 8; K4 at P4b: 8, at P6: 1) gets a block narrower than a
+// warp, and one warp covers several rows.
+//   K2, K3 (one chunk body, gather_chunks, but for a table read's address):
+//   the thread reads the chunk's V indices with V / 4 16-byte loads, issues
+//   all V table reads before it uses one, and writes the chunk with one
+//   16-byte store. K3 takes the index array's row stride (0: one row
+//   serves all, and its indices stay in registers while a thread walks).
+//   K4: the thread reads its ray's row, col and cell once (the ray's
+//   threads read the same addresses: one broadcast each) and writes V
+//   copies of the value with one 16-byte store.
+// A call whose rows do not start on 16-byte boundaries (K2: W % V != 0; K3:
+// N % V != 0; K4: lanes % V != 0, V of the output type) or whose index array
+// or output is a view off a 16-byte boundary takes the scalar path for the
+// whole call: the same chunks, read and written one element at a time,
+// blockDim.x apart, so that each warp access stays coalesced.
 //
 // Indices must lie in range (the TPU kernels' mode="promise_in_bounds"); the
 // wrappers' plain versions raise on indices out of range, the kernels do not
@@ -46,35 +57,17 @@
 #include <stdint.h>
 
 #include <algorithm>
+#include <atomic>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int64_t kMaxBlocks = 32768;  // grid-stride beyond ~250 blocks/SM
-
-unsigned blocks_for(int64_t n) {
-  const int64_t b = (n + kThreads - 1) / kThreads;
-  return (unsigned)(b < kMaxBlocks ? b : kMaxBlocks);
-}
-
-template <typename T>
-__global__ void take_rows_kernel(const T* __restrict__ tbl,
-                                 const int32_t* __restrict__ rows,
-                                 T* __restrict__ out, int64_t n, int64_t W) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    const int64_t j = i % W;
-    out[i] = tbl[(int64_t)rows[i] * W + j];
-  }
-}
-
-constexpr int kLaneThreads = 256;  // K3: most threads a block
+constexpr int kThreads = 256;    // most threads a block
+constexpr int kMaxDevices = 64;  // devices whose size card_size keeps
 
 __device__ __forceinline__ uint32_t bits(float v) { return __float_as_uint(v); }
 __device__ __forceinline__ uint32_t bits(int32_t v) { return (uint32_t)v; }
 
-// One 16-byte store of a K3 chunk: 4 f32 or int32, or 16 int8 packed.
+// One 16-byte store of a chunk: 4 f32 or int32, or 16 int8 packed.
 template <typename T>
 __device__ __forceinline__ void store16(T* dst, const T (&v)[4]) {
   *reinterpret_cast<uint4*>(dst) =
@@ -90,8 +83,19 @@ __device__ __forceinline__ void store16(int8_t* dst, const int8_t (&v)[16]) {
   *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
 }
 
-// K3: the V indices of a chunk, at src = the index row + q0: V / 4
-// 16-byte loads (kWide), or V loads `step` apart, lane 0 where !ok.
+// One 16-byte store of 16 / sizeof(T) copies of v (K4).
+template <typename T>
+__device__ __forceinline__ void fill16(T* dst, T v) {
+  const T c[4] = {v, v, v, v};
+  store16(dst, c);
+}
+__device__ __forceinline__ void fill16(int8_t* dst, int8_t v) {
+  const uint32_t w = (uint32_t)(uint8_t)v * 0x01010101u;
+  *reinterpret_cast<uint4*>(dst) = make_uint4(w, w, w, w);
+}
+
+// The V indices of a chunk, at src = the index row + q0: V / 4 16-byte
+// loads (kWide), or V loads `step` apart, lane 0 where !ok.
 template <int V, bool kWide>
 __device__ __forceinline__ void load_lanes(int32_t (&lane)[V],
                                            const int32_t* __restrict__ src,
@@ -109,16 +113,32 @@ __device__ __forceinline__ void load_lanes(int32_t (&lane)[V],
   }
 }
 
-// K3: thread (x, y) owns the V outputs q0 + j * step (j < V) of rows
-// y, y + Y, ... where Y = gridDim.y * blockDim.y. kWide: step 1, N % V == 0
-// and idx and out 16-byte aligned, so every chunk is whole and aligned.
-// Scalar: step = blockDim.x, outputs past N skipped.
-template <typename T, bool kWide>
-__global__ void __launch_bounds__(kLaneThreads)
-    take_lanes_kernel(const T* __restrict__ tbl,
-                      const int32_t* __restrict__ idx, T* __restrict__ out,
-                      int64_t R, int64_t N, int64_t L,
-                      int64_t idx_row_stride) {
+// Where output (r, q) with index i reads its table element: K3 at row r,
+// lane i of an [R, L] table; K2 at row i, column q of an [R, W] one.
+struct LaneAt {
+  int64_t L;
+  __device__ int64_t operator()(int64_t r, int64_t, int32_t i) const {
+    return r * L + i;
+  }
+};
+struct RowAt {
+  int64_t W;
+  __device__ int64_t operator()(int64_t, int64_t q, int32_t i) const {
+    return (int64_t)i * W + q;
+  }
+};
+
+// K2 and K3: thread (x, y) owns the V outputs q0 + j * step (j < V) of rows
+// y, y + Y, ... (Y = gridDim.y * blockDim.y) of an [R, N] output, whose
+// indices lie at the same places of idx, rows s apart (s = 0: one row
+// serves all); output (r, q) with index i reads tbl[at(r, q, i)]. kWide:
+// step 1, N % V == 0 and idx and out 16-byte aligned, so every chunk is
+// whole and aligned. Scalar: step = blockDim.x, outputs past N skipped.
+template <typename T, bool kWide, typename At>
+__device__ __forceinline__ void gather_chunks(const T* __restrict__ tbl,
+                                              const int32_t* __restrict__ idx,
+                                              T* __restrict__ out, int64_t R,
+                                              int64_t N, int64_t s, At at) {
   constexpr int V = 16 / sizeof(T);
   const int64_t step = kWide ? 1 : blockDim.x;
   const int64_t q0 =
@@ -131,12 +151,12 @@ __global__ void __launch_bounds__(kLaneThreads)
 #pragma unroll
   for (int j = 0; j < V; ++j) ok[j] = kWide || q0 + j * step < N;
   int32_t lane[V];
-  load_lanes<V, kWide>(lane, idx + r * idx_row_stride + q0, ok, step);
+  load_lanes<V, kWide>(lane, idx + r * s + q0, ok, step);
   while (true) {
-    const T* row = tbl + r * L;
     T v[V];  // every table read issued before any is used
 #pragma unroll
-    for (int j = 0; j < V; ++j) v[j] = ok[j] ? __ldg(row + lane[j]) : T(0);
+    for (int j = 0; j < V; ++j)
+      v[j] = ok[j] ? __ldg(tbl + at(r, q0 + j * step, lane[j])) : T(0);
     T* dst = out + r * N + q0;
     if constexpr (kWide) {
       store16(dst, v);
@@ -147,73 +167,147 @@ __global__ void __launch_bounds__(kLaneThreads)
     }
     r += r_step;
     if (r >= R) break;
-    if (idx_row_stride != 0)  // a broadcast row's lanes stay in registers
-      load_lanes<V, kWide>(lane, idx + r * idx_row_stride + q0, ok, step);
+    if (s != 0)  // a broadcast row's lanes stay in registers
+      load_lanes<V, kWide>(lane, idx + r * s + q0, ok, step);
   }
 }
 
-template <typename Tin, typename Tout>
-__global__ void grid_probe_kernel(const Tin* __restrict__ grid,
-                                  const int32_t* __restrict__ row,
-                                  const int32_t* __restrict__ col,
-                                  Tout* __restrict__ out, int64_t n,
-                                  int64_t lanes, int64_t C) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    const int64_t q = i / lanes;
-    out[i] = (Tout)grid[(int64_t)row[q] * C + col[q]];
+template <typename T, bool kWide>
+__global__ void __launch_bounds__(kThreads)
+    take_rows_kernel(const T* __restrict__ tbl,
+                     const int32_t* __restrict__ rows, T* __restrict__ out,
+                     int64_t Q, int64_t W) {
+  gather_chunks<T, kWide>(tbl, rows, out, Q, W, W, RowAt{W});
+}
+
+template <typename T, bool kWide>
+__global__ void __launch_bounds__(kThreads)
+    take_lanes_kernel(const T* __restrict__ tbl,
+                      const int32_t* __restrict__ idx, T* __restrict__ out,
+                      int64_t R, int64_t N, int64_t L,
+                      int64_t idx_row_stride) {
+  gather_chunks<T, kWide>(tbl, idx, out, R, N, idx_row_stride, LaneAt{L});
+}
+
+// K4: thread (x, y) owns the V lanes q0 + j * step (j < V), V of the output
+// type, of rays y, y + Y, ... (Y = gridDim.y * blockDim.y). kWide: lanes %
+// V == 0 and out 16-byte aligned, one 16-byte store of V copies. Scalar:
+// step = blockDim.x, lanes past `lanes` skipped.
+template <typename Tin, typename Tout, bool kWide>
+__global__ void __launch_bounds__(kThreads)
+    grid_probe_kernel(const Tin* __restrict__ grid,
+                      const int32_t* __restrict__ row,
+                      const int32_t* __restrict__ col, Tout* __restrict__ out,
+                      int64_t Q, int64_t lanes, int64_t C) {
+  constexpr int V = 16 / sizeof(Tout);
+  const int64_t step = kWide ? 1 : blockDim.x;
+  const int64_t q0 =
+      kWide ? ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) * V
+            : (int64_t)blockIdx.x * blockDim.x * V + threadIdx.x;
+  if (q0 >= lanes) return;
+  const int64_t q_step = (int64_t)gridDim.y * blockDim.y;
+  for (int64_t q = (int64_t)blockIdx.y * blockDim.y + threadIdx.y; q < Q;
+       q += q_step) {
+    const Tout v =
+        (Tout)__ldg(grid + (int64_t)__ldg(row + q) * C + __ldg(col + q));
+    Tout* dst = out + q * lanes + q0;
+    if constexpr (kWide) {
+      fill16(dst, v);
+    } else {
+#pragma unroll
+      for (int j = 0; j < V; ++j)
+        if (q0 + j * step < lanes) dst[j * step] = v;
+    }
   }
 }
+
+// The current device's SM count and the most threads an SM holds, asked
+// of the runtime once per device: the wrappers' host cost is the whole of
+// a small call.
+cudaError_t card_size(int* sms, int* per_sm) {
+  static std::atomic<int> kept[kMaxDevices][2];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const bool keep = dev >= 0 && dev < kMaxDevices;
+  if (keep) {
+    *sms = kept[dev][0].load(std::memory_order_relaxed);
+    *per_sm = kept[dev][1].load(std::memory_order_relaxed);
+    if (*sms > 0 && *per_sm > 0) return cudaSuccess;
+  }
+  err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(per_sm,
+                                 cudaDevAttrMaxThreadsPerMultiProcessor, dev);
+  if (err == cudaSuccess && keep) {
+    kept[dev][0].store(*sms, std::memory_order_relaxed);
+    kept[dev][1].store(*per_sm, std::memory_order_relaxed);
+  }
+  return err;
+}
+
+// The launch of K2, K3 and K4 over `rows` rows of `chunks` chunks: blocks
+// of up to kThreads threads, bx along a row's chunks (a power of two from
+// 1: a row of fewer than 32 chunks shares its warp with other rows) and
+// by = threads / bx rows, halved (down to one warp) while the grid would
+// leave SMs idle; at most about one wave of blocks, after which each
+// thread walks rows.
+cudaError_t chunk_grid(int64_t chunks, int64_t rows, dim3* grid,
+                       dim3* block) {
+  int sms = 0, per_sm = 0;
+  const cudaError_t err = card_size(&sms, &per_sm);
+  if (err != cudaSuccess) return err;
+  int threads = kThreads;
+  while (threads > 32 && chunks * rows / threads < sms) threads /= 2;
+  int bx = 1;
+  while (bx < threads && bx < chunks) bx *= 2;
+  const int by = threads / bx;
+  const int64_t gx = (chunks + bx - 1) / bx;
+  const int64_t wave = (int64_t)sms * per_sm / threads;  // blocks
+  int64_t gy = (rows + by - 1) / by;
+  gy = std::max<int64_t>(1, std::min<int64_t>({gy, wave / gx, 65535}));
+  if (gx > INT_MAX) return cudaErrorInvalidConfiguration;
+  *grid = dim3((unsigned)gx, (unsigned)gy);
+  *block = dim3(bx, by);
+  return cudaSuccess;
+}
+
+bool aligned16(const void* p) { return (uintptr_t)p % 16 == 0; }
 
 template <typename T>
 int take_rows(const void* tbl, const void* rows, void* out, long long Q,
               long long W, void* stream) {
-  const int64_t n = (int64_t)Q * W;
-  if (n <= 0) return (int)cudaSuccess;
-  take_rows_kernel<T><<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-      (const T*)tbl, (const int32_t*)rows, (T*)out, n, (int64_t)W);
+  if (Q <= 0 || W <= 0) return (int)cudaSuccess;
+  constexpr int V = 16 / sizeof(T);
+  dim3 grid, block;
+  const cudaError_t err = chunk_grid((W + V - 1) / V, Q, &grid, &block);
+  if (err != cudaSuccess) return (int)err;
+  const auto s = (cudaStream_t)stream;
+  if (W % V == 0 && aligned16(rows) && aligned16(out))
+    take_rows_kernel<T, true><<<grid, block, 0, s>>>(
+        (const T*)tbl, (const int32_t*)rows, (T*)out, (int64_t)Q, (int64_t)W);
+  else
+    take_rows_kernel<T, false><<<grid, block, 0, s>>>(
+        (const T*)tbl, (const int32_t*)rows, (T*)out, (int64_t)Q, (int64_t)W);
   return (int)cudaGetLastError();
 }
 
-// K3's launch: blocks of up to kLaneThreads threads, bx along a row's
-// chunks and by = threads / bx rows, halved (down to one warp) while the
-// grid would leave SMs idle; at most about one wave of blocks, after which
-// each thread walks rows.
 template <typename T>
 int take_lanes(const void* tbl, const void* idx, void* out, long long R,
                long long L, long long N, long long idx_row_stride,
                void* stream) {
   if (R <= 0 || N <= 0) return (int)cudaSuccess;
   constexpr int V = 16 / sizeof(T);
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&per_sm,
-                                 cudaDevAttrMaxThreadsPerMultiProcessor, dev);
+  dim3 grid, block;
+  const cudaError_t err = chunk_grid((N + V - 1) / V, R, &grid, &block);
   if (err != cudaSuccess) return (int)err;
-  const int64_t chunks = (N + V - 1) / V;  // a row's chunks of V outputs
-  int threads = kLaneThreads;
-  while (threads > 32 && chunks * R / threads < sms) threads /= 2;
-  int bx = 32;
-  while (bx < threads && bx < chunks) bx *= 2;
-  const int by = threads / bx;
-  const int64_t gx = (chunks + bx - 1) / bx;
-  const int64_t wave = (int64_t)sms * per_sm / threads;  // blocks
-  int64_t gy = (R + by - 1) / by;
-  gy = std::max<int64_t>(1, std::min<int64_t>({gy, wave / gx, 65535}));
-  if (gx > INT_MAX) return (int)cudaErrorInvalidConfiguration;
-  const dim3 grid((unsigned)gx, (unsigned)gy), block(bx, by);
-  const bool wide = N % V == 0 && (uintptr_t)idx % 16 == 0 &&
-                    (uintptr_t)out % 16 == 0;
-  if (wide)
-    take_lanes_kernel<T, true><<<grid, block, 0, (cudaStream_t)stream>>>(
+  const auto s = (cudaStream_t)stream;
+  if (N % V == 0 && aligned16(idx) && aligned16(out))
+    take_lanes_kernel<T, true><<<grid, block, 0, s>>>(
         (const T*)tbl, (const int32_t*)idx, (T*)out, (int64_t)R, (int64_t)N,
         (int64_t)L, (int64_t)idx_row_stride);
   else
-    take_lanes_kernel<T, false><<<grid, block, 0, (cudaStream_t)stream>>>(
+    take_lanes_kernel<T, false><<<grid, block, 0, s>>>(
         (const T*)tbl, (const int32_t*)idx, (T*)out, (int64_t)R, (int64_t)N,
         (int64_t)L, (int64_t)idx_row_stride);
   return (int)cudaGetLastError();
@@ -222,12 +316,20 @@ int take_lanes(const void* tbl, const void* idx, void* out, long long R,
 template <typename Tin, typename Tout>
 int grid_probe(const void* grid, const void* row, const void* col, void* out,
                long long Q, long long lanes, long long C, void* stream) {
-  const int64_t n = (int64_t)Q * lanes;
-  if (n <= 0) return (int)cudaSuccess;
-  grid_probe_kernel<Tin, Tout>
-      <<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-          (const Tin*)grid, (const int32_t*)row, (const int32_t*)col,
-          (Tout*)out, n, (int64_t)lanes, (int64_t)C);
+  if (Q <= 0 || lanes <= 0) return (int)cudaSuccess;
+  constexpr int V = 16 / sizeof(Tout);
+  dim3 g, block;
+  const cudaError_t err = chunk_grid((lanes + V - 1) / V, Q, &g, &block);
+  if (err != cudaSuccess) return (int)err;
+  const auto s = (cudaStream_t)stream;
+  if (lanes % V == 0 && aligned16(out))
+    grid_probe_kernel<Tin, Tout, true><<<g, block, 0, s>>>(
+        (const Tin*)grid, (const int32_t*)row, (const int32_t*)col,
+        (Tout*)out, (int64_t)Q, (int64_t)lanes, (int64_t)C);
+  else
+    grid_probe_kernel<Tin, Tout, false><<<g, block, 0, s>>>(
+        (const Tin*)grid, (const int32_t*)row, (const int32_t*)col,
+        (Tout*)out, (int64_t)Q, (int64_t)lanes, (int64_t)C);
   return (int)cudaGetLastError();
 }
 

@@ -8,12 +8,14 @@ the JAX package's perf/ directory:
     python -m laenerf_tpu_torch.perf.probe_worklist2 [--n 12] [--small]
     python -m laenerf_tpu_torch.perf.bisect_mosaic [--n 16] [--device cuda]
     python -m laenerf_tpu_torch.perf.tile_scatter_split [--n 12] [--small]
+    python -m laenerf_tpu_torch.perf.phase_turns --phase gather ROOT ...
 
 Each prints the card's nvidia-smi line, then one row per probe under the JAX
 script's label: ms per call and ns per query (per scalar for the scatters);
 bisect_mosaic prints one OK or FAIL line per construct, and
 tile_scatter_split one row per cut of the S1 probe's updates (it has no JAX
-script). On the card a probe
+script); phase_turns runs a chip_smoke.py phase of several checkouts in
+turns and prints their device times side by side. On the card a probe
 is timed with CUDA events around n back-to-back calls after one warm call;
 each call gets its own index set, the first one shifted by the call number
 modulo the table size (the scatter probes alternate two sets, idx and

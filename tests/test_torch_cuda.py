@@ -179,16 +179,25 @@ def _idx(rng, high, shape, dev):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("W", [1, 3, 8, 17, 128, 200])
 @pytest.mark.parametrize("dtype", sorted(GATHER_DTYPES))
-def test_take_rows_kernel_matches_plain(cuda, dtype):
-    rng = np.random.RandomState(0)
-    tbl = _gather_table(rng, (1000, 128), GATHER_DTYPES[dtype], cuda)
-    rows = _idx(rng, 1000, (3000, 128), cuda)
-    before = take_rows.launches
-    got = take_rows(tbl, rows)
-    torch.cuda.synchronize()
-    assert take_rows.launches == before + 1
-    assert torch.equal(got, take_rows_plain(tbl, rows))
+def test_take_rows_kernel_matches_plain(cuda, dtype, W):
+    """K2 at widths on and off its 16-byte chunks (W % V != 0: the scalar
+    path), with rows also as a contiguous view 4 bytes into its storage
+    (the scalar path at any W) and, at W = 128, more query rows than one
+    wave of the card holds (each thread walks rows)."""
+    rng = np.random.RandomState(W)
+    R = 1000
+    tbl = _gather_table(rng, (R, W), GATHER_DTYPES[dtype], cuda)
+    cases = [(3000, False), (3000, True)] + [(40000, False)] * (W == 128)
+    for Q, view in cases:
+        rows = _idx(rng, R, (Q * W + view,), cuda)[int(view):].view(Q, W)
+        assert rows.storage_offset() == int(view)
+        before = take_rows.launches
+        got = take_rows(tbl, rows)
+        torch.cuda.synchronize()
+        assert take_rows.launches == before + 1
+        assert torch.equal(got, take_rows_plain(tbl, rows))
 
 
 def _take_lanes_matches(tbl, idx):
@@ -244,19 +253,26 @@ def test_take_lanes_on_offset_views(cuda, dtype, broadcast):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("lanes", [1, 128])
+@pytest.mark.parametrize("lanes", [1, 3, 4, 16, 17, 128])
 @pytest.mark.parametrize("pair", ["f32_f32", "i32_i32", "i8_i8", "i8_i32"])
 def test_grid_probe_kernel_matches_plain(cuda, pair, lanes):
+    """K4 at lane counts on and off the output's 16-byte chunks (lanes % V
+    != 0: the scalar path), with row and col also as contiguous views 4
+    bytes into their storage."""
     din, dout = (GATHER_DTYPES[p] for p in pair.split("_"))
     rng = np.random.RandomState(2)
     grid = _gather_table(rng, (4096, 96), din, cuda)
-    row, col = _idx(rng, 4096, (5000,), cuda), _idx(rng, 96, (5000,), cuda)
-    before = grid_probe.launches
-    got = grid_probe(grid, row, col, lanes=lanes, out_dtype=dout)
-    torch.cuda.synchronize()
-    assert grid_probe.launches == before + 1
-    assert got.shape == (5000, lanes) and got.dtype == dout
-    assert torch.equal(got, grid_probe_plain(grid, row, col, lanes, dout))
+    for view in (False, True):
+        j = int(view)
+        row = _idx(rng, 4096, (5000 + j,), cuda)[j:]
+        col = _idx(rng, 96, (5000 + j,), cuda)[j:]
+        assert row.storage_offset() == col.storage_offset() == j
+        before = grid_probe.launches
+        got = grid_probe(grid, row, col, lanes=lanes, out_dtype=dout)
+        torch.cuda.synchronize()
+        assert grid_probe.launches == before + 1
+        assert got.shape == (5000, lanes) and got.dtype == dout
+        assert torch.equal(got, grid_probe_plain(grid, row, col, lanes, dout))
 
 
 @pytest.mark.cuda

@@ -30,6 +30,7 @@ from laenerf_tpu_torch.ops.gather import (grid_probe, grid_probe_plain,
                                           take_rows, take_rows_plain)
 from laenerf_tpu_torch.perf import microbench_gather as mg
 from laenerf_tpu_torch.perf import microbench_pallas as mp
+from laenerf_tpu_torch.perf import phase_turns
 
 VMEM = pl.BlockSpec(memory_space=pltpu.VMEM)
 
@@ -112,21 +113,27 @@ def _make_k_two_step(R8, nray):
     return _k_two_step
 
 
+# (kernel, dtype, table rows R, queries Q, width W); W = 8 and 17 are the
+# ragged widths (K2's scalar path for int8 at 8 and for every dtype at 17)
 TAKE_ROWS_CASES = {
-    "P1_k_ax0_f32": (_k_ax0, np.float32, 64, 64),
-    "P2b_k_ax0_i32": (_k_ax0, np.int32, 64, 64),
-    "P2_k_ax0_i8": (_k_ax0_i8, np.int8, 64, 64),
-    "G_kernel_f32": (_kernel, np.float32, 64, 128),
+    "P1_k_ax0_f32": (_k_ax0, np.float32, 64, 64, 128),
+    "P2b_k_ax0_i32": (_k_ax0, np.int32, 64, 64, 128),
+    "P2_k_ax0_i8": (_k_ax0_i8, np.int8, 64, 64, 128),
+    "G_kernel_f32": (_kernel, np.float32, 64, 128, 128),
+    "P1_k_ax0_f32_W8": (_k_ax0, np.float32, 64, 64, 8),
+    "P1_k_ax0_f32_W17": (_k_ax0, np.float32, 64, 64, 17),
+    "P2_k_ax0_i8_W8": (_k_ax0_i8, np.int8, 64, 64, 8),
+    "P2_k_ax0_i8_W17": (_k_ax0_i8, np.int8, 64, 64, 17),
 }
 
 
 @pytest.mark.parametrize("case", sorted(TAKE_ROWS_CASES))
 def test_take_rows_matches_pallas(case):
-    kernel, dtype, R, Q = TAKE_ROWS_CASES[case]
+    kernel, dtype, R, Q, W = TAKE_ROWS_CASES[case]
     rng = np.random.RandomState(len(case))
-    tbl = _table(rng, (R, 128), dtype)
-    rows = rng.randint(0, R, (Q, 128)).astype(np.int32)
-    ref = _pallas(kernel, (Q, 128), dtype, tbl, rows)
+    tbl = _table(rng, (R, W), dtype)
+    rows = rng.randint(0, R, (Q, W)).astype(np.int32)
+    ref = _pallas(kernel, (Q, W), dtype, tbl, rows)
     got = take_rows(torch.from_numpy(tbl), torch.from_numpy(rows))
     assert got.dtype == torch.from_numpy(tbl).dtype
     np.testing.assert_array_equal(got.numpy(), ref)
@@ -209,10 +216,11 @@ def test_take_lanes_ragged_matches_pallas(kernel, rows, nray, view):
     np.testing.assert_array_equal(got.numpy(), ref)
 
 
+@pytest.mark.parametrize("H", [16, 24])
 @pytest.mark.parametrize("dtype", [np.int32, np.int8])
-def test_grid_probe_matches_pallas_march_probe(dtype):
-    """P4 (int32) and P4b (int8): one cell per ray into all H lanes."""
-    H = 16
+def test_grid_probe_matches_pallas_march_probe(dtype, H):
+    """P4 (int32) and P4b (int8): one cell per ray into all H lanes (H = 24
+    is not a multiple of int8's 16-lane chunk: K4's scalar path)."""
     NR = H * H
     rng = np.random.RandomState(7)
     grid = _table(rng, (NR, H), dtype)
@@ -332,3 +340,17 @@ def test_probe_script_main_on_cpu(script, argv, rows, capsys):
     assert len(res) == rows
     assert all(math.isfinite(t) and t > 0 for t in res.values())
     assert all(label in out for label in res)
+
+
+def test_phase_turns_sets_turns_side_by_side():
+    """phase_turns' table: every site of any turn, one value per turn
+    in turn order, None where a turn lacks the site or the key."""
+    parent = [{"site": "P1", "device_ms": 0.006, "library_device_ms": 0.0063},
+              {"site": "P6", "device_ms": 0.0017}]
+    change = [{"site": "P1", "device_ms": 0.004, "library_device_ms": 0.0062},
+              {"site": "P4", "device_ms": 0.003}]
+    table = phase_turns.side_by_side([parent, change, change, parent])
+    assert list(table) == ["P1", "P6", "P4"]
+    assert table["P1"]["device_ms"] == [0.006, 0.004, 0.004, 0.006]
+    assert table["P6"]["device_ms"] == [0.0017, None, None, 0.0017]
+    assert table["P4"]["library_device_ms"] == [None] * 4
