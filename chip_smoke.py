@@ -9,10 +9,11 @@ Phases, one or more lines each, tagged with the seconds since the start
      csrc/gather_probes.cu: K2-K4; csrc/sorted_scatter.cu: K5, K6;
      csrc/construct_probes.cu: K7) with nvcc, one process per source, all
      started together; prints the registers, shared memory and spill
-     stores of K1's, K2's, K3's, K4's and K7 k1's and k4's kernels, and
-     what cuobjdump -sass shows of the gather kernels (instances with a
-     16-byte store and a 16-byte load, and calls such as a 64-bit
-     division routine).
+     stores of K1's, K2's, K3's, K4's and K7 k1's, k4's, k5's and k7's
+     kernels, and what cuobjdump -sass shows of the gather kernels and of
+     K7's fill kernels (k1, k5, k7): instances with a 16-byte store and a
+     16-byte load, calls such as a 64-bit division routine, and FADDs
+     (k5's loop; the phase fails if k5 has none, a loop folded away).
   3. K1 against its plain PyTorch version on the card: the cases of the
      JAX package's scatter-add tests; the main-path shape (65,536 samples x
      8 levels x 8 corners of the L8C4 lg19 grid, passed as the backward
@@ -47,11 +48,14 @@ Phases, one or more lines each, tagged with the seconds since the start
      k6b), each equal to its plain version and, for the six that have one,
      to the PyTorch call for the same function (torch.equal) on the
      script's inputs and on random ones, timed against both on the random
-     ones; then k6b's kernel on a skewed input (all 1,024 columns of each
-     tile on one row, small integers) equal to its plain version, and k4
-     at the edges of its 64-row slices (offsets 0, len(q) - tile and 1-3
-     mod 4; C = 1, 4, 8, 12; one tile) equal to its plain version and to
-     torch.take.
+     ones (and k5 also on the script's 3 trips); then k6b's kernel on a
+     skewed input (all 1,024 columns of each tile on one row, small
+     integers) equal to its plain version, k4 at the edges of its 64-row
+     slices (offsets 0, len(q) - tile and 1-3 mod 4; C = 1, 4, 8, 12; one
+     tile) equal to its plain version and to torch.take, and the fill
+     kernels k1, k5 and k7 at ragged shapes (tiles of 1, 100 and 1,024
+     rows by C = 1, 3, 8, 128, and 300 tiles) equal to their plain
+     versions.
   8. probes: the four scatter entry points (microbench_scatter2,
      probe_worklist, probe_worklist2 at --n 12; bisect_mosaic), with the
      launch counts of K5-K7 set to 0 before and read after; each must
@@ -100,9 +104,15 @@ SECTOR = 32  # bytes: the unit in which L2 and HBM serve a random read
 # kernels whose registers, shared memory and spills the build phase prints
 REPORTED_KERNELS = ("take_rows_kernel", "take_lanes_kernel",
                     "grid_probe_kernel", "copy_1d_kernel",
-                    "scatter_add_rows_kernel", "prefetch_write_kernel")
+                    "scatter_add_rows_kernel", "prefetch_write_kernel",
+                    "dynamic_loop_kernel", "iota_rows_kernel")
 GATHER_KERNELS = ("take_rows_kernel", "take_lanes_kernel",
                   "grid_probe_kernel")
+FILL_KERNELS = ("prefetch_write_kernel", "dynamic_loop_kernel",
+                "iota_rows_kernel")
+# K7's fill kernels at ragged shapes: (tile, C, n_tiles)
+FILL_SHAPES = [(tile, C, 7) for tile in (1, 100, 1024)
+               for C in (1, 3, 8, 128)] + [(1024, 8, 300)]
 
 
 START = time.perf_counter()
@@ -143,9 +153,9 @@ def ptxas_kernels(report, names):
 def sass_counts(library, names):
     """For each kernel name, from `cuobjdump -sass` of the built library:
     its instances and how many of them hold a 16-byte global store
-    (STG.E.128) and a 16-byte global load (LDG.E.128...), and its CALL
-    instructions (a 64-bit division or modulo is a call to a routine).
-    None where the toolkit has no cuobjdump."""
+    (STG.E.128) and a 16-byte global load (LDG.E.128...), its CALL
+    instructions (a 64-bit division or modulo is a call to a routine) and
+    its FADD instructions. None where the toolkit has no cuobjdump."""
     from laenerf_tpu_torch.ops.cuda_build import _nvcc
 
     tool = shutil.which("cuobjdump", path=str(Path(_nvcc()).parent))
@@ -153,8 +163,8 @@ def sass_counts(library, names):
         return None
     sass = subprocess.run([tool, "-sass", library], capture_output=True,
                           text=True, check=True).stdout
-    counts = {n: {"instances": 0, "stg128": 0, "ldg128": 0, "calls": 0}
-              for n in names}
+    counts = {n: {"instances": 0, "stg128": 0, "ldg128": 0, "calls": 0,
+                  "fadds": 0} for n in names}
     for func in sass.split("Function : ")[1:]:
         name = next((n for n in names if n in func.split("\n", 1)[0]), None)
         if name is None:
@@ -164,6 +174,7 @@ def sass_counts(library, names):
         c["stg128"] += "STG.E.128" in func
         c["ldg128"] += "LDG.E.128" in func
         c["calls"] += len(re.findall(r"\bCALL\.", func))
+        c["fadds"] += len(re.findall(r"\bFADD\b", func))
     return counts
 
 
@@ -852,8 +863,9 @@ def construct_library(fn, args):
 def phase_constructs(card, dev):
     """K7: every construct equal to its plain version and to its library
     call, where it has one, on the script's inputs and on random ones;
-    timed on the random ones."""
-    from laenerf_tpu_torch.ops.construct_probes import PLAIN, onehot_dot
+    timed on the random ones, and k5 also on the script's trips."""
+    from laenerf_tpu_torch.ops.construct_probes import (PLAIN, dynamic_loop,
+                                                        onehot_dot)
     from laenerf_tpu_torch.perf import bisect_mosaic
 
     results = []
@@ -870,8 +882,11 @@ def phase_constructs(card, dev):
                     got, lib.to(got.dtype).reshape(got.shape)):
                 raise AssertionError(f"K7 {label} (seed {seed}) differs "
                                      f"from its library call")
+            site = label
             if seed is None:
-                continue
+                if fn is not dynamic_loop:
+                    continue
+                site = f"{label}, {int(args[0][0])} trips"
             n_bytes = tensor_bytes(args) + got.numel() * got.element_size()
             n_ops, dense = 0, 0
             if fn is onehot_dot:
@@ -898,7 +913,7 @@ def phase_constructs(card, dev):
             library_ms = (t[1] + t[4]) / 2 if library else None
             dev_ms = device_ms(run)
             dev_library_ms = device_ms(library) if library else None
-            results.append({"site": label, "kernel": fn.__name__,
+            results.append({"site": site, "kernel": fn.__name__,
                             "replaces": tpu, "ms": ms, "plain_ms": plain_ms,
                             "library_ms": library_ms, "bound_ms": bound_ms,
                             "bound_by": bound_by, "bytes": n_bytes,
@@ -911,7 +926,7 @@ def phase_constructs(card, dev):
             lib_msg = (f"library {library_ms:.4f} ms" if library else
                        "no single library call")
             equal = "plain and library" if library else "plain"
-            phase("constructs", f"{label} ({tpu}): equal to {equal} on the "
+            phase("constructs", f"{site} ({tpu}): equal to {equal} on the "
                                 f"script's and random inputs; {ms:.4f} ms "
                                 f"vs plain "
                                 f"{plain_ms:.4f} ms, {lib_msg}, bound "
@@ -940,7 +955,41 @@ def phase_constructs(card, dev):
                         f"C 1, 4, 8, 12; offsets 0, len(q) - tile and 1, 2, "
                         f"3 mod 4): {calls} calls, each equal to plain and "
                         f"torch.take")
+    calls = fill_ragged(dev)
+    phase("constructs", f"k1, k5, k7 at ragged shapes (tile, C, n_tiles) "
+                        f"{FILL_SHAPES}: {calls} calls, each equal to plain")
     return results
+
+
+def fill_ragged(dev):
+    """K7's fill kernels (k1, k5, k7) at FILL_SHAPES, untimed: tiles that
+    start off 16 bytes, C off a float4, one-row tiles and more blocks than
+    a wave; k1 on random values, k5 on trips -5, 0, 1, 3, 199 and 4,096
+    among random ones. Each equal to its plain version. Returns the number
+    of calls."""
+    from laenerf_tpu_torch.ops.construct_probes import (PLAIN, dynamic_loop,
+                                                        iota_rows,
+                                                        prefetch_write)
+
+    rng = np.random.RandomState(11)
+    calls = 0
+    for tile, C, n_tiles in FILL_SHAPES:
+        trips = rng.randint(-5, 200, n_tiles)
+        trips[:6] = (-5, 0, 1, 3, 199, 4096)
+        values = rng.randint(-2 ** 24, 2 ** 24, n_tiles)
+        for fn, args in (
+                (prefetch_write, (torch.from_numpy(values.astype(np.int32))
+                                  .to(dev), n_tiles, tile, C)),
+                (dynamic_loop, (torch.from_numpy(rng.permutation(trips)
+                                                 .astype(np.int32)).to(dev),
+                                n_tiles, tile, C)),
+                (iota_rows, (n_tiles, tile, C, dev))):
+            if not torch.equal(fn(*args), PLAIN[fn](*args)):
+                raise AssertionError(f"{fn.__name__} tile {tile} C {C} "
+                                     f"n_tiles {n_tiles}: differs from its "
+                                     f"plain version")
+            calls += 1
+    return calls
 
 
 def copy_1d_ragged(dev):
@@ -1206,13 +1255,18 @@ def main():
             phase("build", f"ptxas {name}: {regs} registers, {smem} B "
                            f"shared memory, {spill} B spill stores")
     phase("build", f"all sources in {time.perf_counter() - t0:.1f} s")
-    sass = sass_counts(cuda_build.build_info["gather_probes.cu"]["path"],
-                       GATHER_KERNELS)
-    phase("build", "cuobjdump -sass of gather_probes.cu: " + (
-        "no cuobjdump" if sass is None else "; ".join(
-            f"{n} {c['instances']} instances, STG.E.128 in {c['stg128']}, "
-            f"LDG.E.128 in {c['ldg128']}, {c['calls']} CALL"
-            for n, c in sass.items())))
+    for src, names in (("gather_probes.cu", GATHER_KERNELS),
+                       ("construct_probes.cu", FILL_KERNELS)):
+        sass = sass_counts(cuda_build.build_info[src]["path"], names)
+        phase("build", f"cuobjdump -sass of {src}: " + (
+            "no cuobjdump" if sass is None else "; ".join(
+                f"{n} {c['instances']} instances, STG.E.128 in "
+                f"{c['stg128']}, LDG.E.128 in {c['ldg128']}, {c['calls']} "
+                f"CALL, {c['fadds']} FADD" for n, c in sass.items())))
+        if sass and "dynamic_loop_kernel" in sass \
+                and not sass["dynamic_loop_kernel"]["fadds"]:
+            raise AssertionError("dynamic_loop_kernel has no FADD: its "
+                                 "loop over lo[k] was folded away")
 
     model_cfg = NeRFConfig(bound=1.0, num_levels=8, level_dim=4,
                            log2_hashmap_size=19)

@@ -27,11 +27,15 @@
 //   k7 probe_iota             row r of tile k = r (a 1-D iota, :190)
 //
 // What bounds them on an H100: k1-k5 and k7 the launch (outputs of 256 KB).
-// k5 and k7 launch one block per tile, 8 blocks on 132 SMs. k1 spreads each
-// tile over the card, one 128-thread block per (tile, 2 KB slice of its
-// tile * C * 4 bytes), 128 blocks at the probe's shape, each thread one
-// float4 store of the value; a tile that starts or ends off 16 bytes (tile
-// * C % 4 != 0) stores its head and tail one float at a time. k2 and
+// k1, k5 and k7 share one fill body (fill_slices, the value a functor) that
+// spreads each tile over the card, one 128-thread block per (tile, 2 KB
+// slice of its tile * C * 4 bytes), 128 blocks at the probe's shape, each
+// thread one float4 store of its value; a tile that starts or ends off 16
+// bytes (tile * C % 4 != 0) stores its head and tail one float at a time.
+// k1's value is lo[k]; k5's thread runs the loop of lo[k] trips once and
+// stores its sum; k7's float4 lies in one row when C % 4 == 0, its row the
+// float4's index over C / 4 (a 32-bit division a thread), and other C take
+// a scalar path on the same kind of grid, one float a thread. k2 and
 // k3 spread each tile over the card: a tile of g is one contiguous run of
 // tile * C * 4 bytes, so one block per (tile, 2 KB slice of it), 128 blocks
 // at the probe's shape, whose one thread starts a bulk load of the slice
@@ -128,28 +132,31 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
-constexpr int kFillThreads = 128;  // k1: a thread stores 16 bytes
-constexpr int kFillSlice = kFillThreads * 4;  // k1: floats a block stores
+constexpr int kFillThreads = 128;  // k1, k5, k7: a thread stores 16 bytes
+constexpr int kFillSlice = kFillThreads * 4;  // floats a fill block stores
 
-// k1: block b fills slice b % slices of tile k = b / slices with (float)
-// lo[k]. The tile's n = tile * C floats start at float k * n of the
-// 16-byte aligned output, so they split into a head of up to 3 floats up to
-// the first 16-byte boundary, whole float4s, and a tail of up to 3: slice
-// i stores float4s [i * kFillThreads, (i + 1) * kFillThreads) of the
-// tile's, one a thread, and slice 0 also stores the head and the tail one
-// float a thread.
-__global__ void __launch_bounds__(kFillThreads)
-    prefetch_write_kernel(const int32_t* __restrict__ lo,
-                          float* __restrict__ out, int64_t n,
-                          unsigned slices) {
+// The fill body of k1, k5 and k7: block b fills slice b % slices of tile k =
+// b / slices. The tile's n floats start at float k * n of the 16-byte
+// aligned output, so they split into a head of up to 3 floats up to the
+// first 16-byte boundary, whole float4s, and a tail of up to 3: slice s
+// stores float4s [s * kFillThreads, (s + 1) * kFillThreads) of the tile's,
+// one a thread, and slice 0 also stores the head and the tail one float a
+// thread. Each thread asks value(k, i) once, i its float4's index in the
+// tile, and stores that value in every float it writes: so the value must
+// hold over the thread's floats (k1, k5: the whole tile; k7: a row, with
+// C % 4 == 0, so a float4 lies in one row and the tile has no head or tail).
+template <class Value>
+__device__ __forceinline__ void fill_slices(float* __restrict__ out,
+                                            int64_t n, unsigned slices,
+                                            const Value& value) {
   const unsigned k = blockIdx.x / slices;
   const int64_t slice = blockIdx.x - (int64_t)k * slices;
-  const float v = (float)__ldg(lo + k);
   float* dst = out + (int64_t)k * n;
   const int64_t to16 = (int64_t)((4 - ((uintptr_t)dst >> 2)) & 3);
   const int64_t head = to16 < n ? to16 : n;
   const int64_t n4 = (n - head) >> 2;  // whole float4s
   const int64_t i = slice * kFillThreads + threadIdx.x;
+  const float v = value(k, i);
   if (i < n4) {
     reinterpret_cast<float4*>(dst + head)[i] = make_float4(v, v, v, v);
   }
@@ -157,6 +164,51 @@ __global__ void __launch_bounds__(kFillThreads)
     const int64_t tail = n - head - 4 * n4;  // both at most 3
     if (threadIdx.x < head) dst[threadIdx.x] = v;
     if (threadIdx.x < tail) dst[head + 4 * n4 + threadIdx.x] = v;
+  }
+}
+
+// k1: tile k = (float)lo[k].
+__global__ void __launch_bounds__(kFillThreads)
+    prefetch_write_kernel(const int32_t* __restrict__ lo,
+                          float* __restrict__ out, int64_t n,
+                          unsigned slices) {
+  fill_slices(out, n, slices,
+              [lo](unsigned k, int64_t) { return (float)__ldg(lo + k); });
+}
+
+// k5: tile k = 1.0f added lo[k] times, by a loop whose trip count each
+// thread reads from memory and runs once (a dependent chain of FADDs; 0
+// trips for lo[k] <= 0).
+__global__ void __launch_bounds__(kFillThreads)
+    dynamic_loop_kernel(const int32_t* __restrict__ lo,
+                        float* __restrict__ out, int64_t n,
+                        unsigned slices) {
+  fill_slices(out, n, slices, [lo](unsigned k, int64_t) {
+    const int trips = __ldg(lo + k);
+    float acc = 0.0f;
+    for (int j = 0; j < trips; ++j) acc += 1.0f;
+    return acc;
+  });
+}
+
+// k7, row r of each tile = r. kVec (C % 4 == 0, a 16-byte aligned output):
+// the fill body, float4 i of a tile in row i / (C / 4), one 32-bit division
+// a thread. Otherwise one float a thread: block b covers floats
+// [s * kFillThreads, (s + 1) * kFillThreads) of tile k = b / slices, s = b
+// % slices, float e in row e / C. The launcher keeps n < 2^31.
+template <bool kVec>
+__global__ void __launch_bounds__(kFillThreads)
+    iota_rows_kernel(float* __restrict__ out, int64_t n, unsigned C,
+                     unsigned slices) {
+  if constexpr (kVec) {
+    const unsigned c4 = C / 4;
+    fill_slices(out, n, slices, [c4](unsigned, int64_t i) {
+      return (float)((unsigned)i / c4);
+    });
+  } else {
+    const unsigned k = blockIdx.x / slices;
+    const unsigned e = (blockIdx.x - k * slices) * kFillThreads + threadIdx.x;
+    if (e < (unsigned)n) out[(int64_t)k * n + e] = (float)(e / C);
   }
 }
 
@@ -223,18 +275,6 @@ __global__ void __launch_bounds__(kCopyRows)
     for (int c = 0; c < C; c += 4) *reinterpret_cast<float4*>(dst + c) = v4;
   } else {
     for (int c = 0; c < C; ++c) dst[c] = v;
-  }
-}
-
-__global__ void dynamic_loop_kernel(const int32_t* __restrict__ lo,
-                                    float* __restrict__ out, int tile,
-                                    int C) {
-  const int n = lo[blockIdx.x];
-  float* dst = out + (int64_t)blockIdx.x * tile * C;
-  for (int i = threadIdx.x; i < tile * C; i += blockDim.x) {
-    float acc = 0.0f;
-    for (int j = 0; j < n; ++j) acc += 1.0f;
-    dst[i] = acc;
   }
 }
 
@@ -389,12 +429,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-__global__ void iota_kernel(float* __restrict__ out, int tile, int C) {
-  float* dst = out + (int64_t)blockIdx.x * tile * C;
-  for (int i = threadIdx.x; i < tile * C; i += blockDim.x)
-    dst[i] = (float)(i / C);
-}
-
 int row_copy(const void* g, const void* lo, void* out, long long n_tiles,
              int tile, int C, void* stream) {
   if (n_tiles <= 0) return (int)cudaSuccess;
@@ -422,20 +456,39 @@ int onehot_dot(const void* local, const void* g, void* out,
   return (int)cudaGetLastError();
 }
 
+// Blocks of a fill of n_tiles tiles of n floats, `per` floats a block (the
+// fill body's 4 * kFillThreads: enough float4s for a tile's body at any
+// offset, and slice 0 at least), with the slices of a tile; 0 where there is
+// nothing to fill, -1 where the grid is too large.
+long long fill_grid(long long n_tiles, long long n, int per,
+                    unsigned* slices) {
+  if (n_tiles <= 0 || n <= 0) return 0;
+  const long long s = (n + per - 1) / per;
+  if (n_tiles * s > INT_MAX) return -1;
+  *slices = (unsigned)s;
+  return n_tiles * s;
+}
+
+// k1, k5: one value a tile, from lo.
+int tile_fill(void (*kernel)(const int32_t*, float*, int64_t, unsigned),
+              const void* lo, void* out, long long n_tiles, int tile, int C,
+              void* stream) {
+  const long long n = (long long)tile * C;
+  unsigned slices = 0;
+  const long long blocks = fill_grid(n_tiles, n, kFillSlice, &slices);
+  if (blocks <= 0)
+    return (int)(blocks ? cudaErrorInvalidConfiguration : cudaSuccess);
+  kernel<<<(unsigned)blocks, kFillThreads, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)lo, (float*)out, (int64_t)n, slices);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int probe_prefetch_write(const void* lo, void* out,
                                     long long n_tiles, int tile, int C,
                                     void* stream) {
-  const long long n = (long long)tile * C;
-  if (n_tiles <= 0 || n <= 0) return (int)cudaSuccess;
-  // enough float4s for the tile's body at any offset, and slice 0 at least
-  const long long slices = (n + kFillSlice - 1) / kFillSlice;
-  if (n_tiles * slices > INT_MAX) return (int)cudaErrorInvalidConfiguration;
-  prefetch_write_kernel<<<(unsigned)(n_tiles * slices), kFillThreads, 0,
-                          (cudaStream_t)stream>>>(
-      (const int32_t*)lo, (float*)out, (int64_t)n, (unsigned)slices);
-  return (int)cudaGetLastError();
+  return tile_fill(prefetch_write_kernel, lo, out, n_tiles, tile, C, stream);
 }
 
 extern "C" int probe_static_copy(const void* g, void* out, long long n_tiles,
@@ -465,11 +518,7 @@ extern "C" int probe_copy_1d(const void* q, const void* lo, void* out,
 extern "C" int probe_dynamic_loop(const void* lo, void* out,
                                   long long n_tiles, int tile, int C,
                                   void* stream) {
-  if (n_tiles <= 0) return (int)cudaSuccess;
-  dynamic_loop_kernel<<<(unsigned)n_tiles, kThreads, 0,
-                        (cudaStream_t)stream>>>((const int32_t*)lo,
-                                                (float*)out, tile, C);
-  return (int)cudaGetLastError();
+  return tile_fill(dynamic_loop_kernel, lo, out, n_tiles, tile, C, stream);
 }
 
 // C == 8 or a multiple of 16; tile a multiple of 32; maxu of 16; local 16-
@@ -485,8 +534,16 @@ extern "C" int probe_onehot_dot(const void* local, const void* g, void* out,
 
 extern "C" int probe_iota(void* out, long long n_tiles, int tile, int C,
                           void* stream) {
-  if (n_tiles <= 0) return (int)cudaSuccess;
-  iota_kernel<<<(unsigned)n_tiles, kThreads, 0, (cudaStream_t)stream>>>(
-      (float*)out, tile, C);
+  const long long n = (long long)tile * C;
+  if (n > INT_MAX) return (int)cudaErrorInvalidConfiguration;
+  const bool vec = C % 4 == 0 && (uintptr_t)out % 16 == 0;
+  unsigned slices = 0;
+  const long long blocks =
+      fill_grid(n_tiles, n, vec ? kFillSlice : kFillThreads, &slices);
+  if (blocks <= 0)
+    return (int)(blocks ? cudaErrorInvalidConfiguration : cudaSuccess);
+  const auto kernel = vec ? iota_rows_kernel<true> : iota_rows_kernel<false>;
+  kernel<<<(unsigned)blocks, kFillThreads, 0, (cudaStream_t)stream>>>(
+      (float*)out, (int64_t)n, (unsigned)C, slices);
   return (int)cudaGetLastError();
 }

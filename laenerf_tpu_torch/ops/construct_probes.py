@@ -17,16 +17,20 @@ them; each writes an f32 [n_tiles * tile, C] output, tile k in rows
                                              k6b is C = 128
   k7  iota_rows(n_tiles, tile, C)            row r of tile k = r
 
-k1 fills each tile in 2 KB slices, one block each, with 16-byte stores;
-k2-k4 are bulk asynchronous copies into shared memory that complete on an
-mbarrier (k2 and k3 one block per 2 KB slice of a tile, stored back with a
-bulk copy out; k4 one block per 64 rows of a tile, converted and stored
-with 16-byte stores); k6 buckets each tile's columns by 32-row window and runs the
-product over each window's columns on the tensor cores, one block per
-(tile, window, channel chunk). Each wrapper launches its kernel on a
-CUDA tensor, counts the launch in `<fn>.launches`, and runs its plain version
-(`<fn>_plain`) on a CPU tensor. Offsets must lie in range: the plain versions
-raise, the kernels do not check. Every output is exact (copies, integer
+k1, k5 and k7 share one fill body: each tile in 2 KB slices, one block
+each, a 16-byte store a thread (a tile that starts off 16 bytes stores its
+head and tail a float at a time); k5's thread runs the loop of lo[k] trips
+once, and k7's float4 lies in one row where C % 4 == 0 (other C: a float a
+thread, on the same kind of grid). k2-k4 are bulk asynchronous copies into
+shared memory that complete on an mbarrier (k2 and k3 one block per 2 KB
+slice of a tile, stored back with a bulk copy out; k4 one block per 64 rows
+of a tile, converted and stored with 16-byte stores); k6 buckets each
+tile's columns by 32-row window and runs the product over each window's
+columns on the tensor cores, one block per (tile, window, channel chunk).
+Each wrapper launches its kernel on a CUDA tensor, counts the launch in
+`<fn>.launches`, and runs its plain version (`<fn>_plain`) on a CPU tensor.
+Offsets must lie in range: the plain versions raise, the kernels do not
+check. Every output is exact (copies, integer
 counts, a one-hot product whose rows sum bf16 values in f32), so a kernel
 and its plain version agree bit for bit wherever no output row sums two
 nonzero terms of g.

@@ -1,7 +1,8 @@
 """Parity of the port's construct probes (laenerf_tpu_torch/ops/
 construct_probes.py, kernel K7) with the eight Pallas kernels of
 perf/bisect_mosaic.py, run through pl.pallas_call(interpret=True) on the CPU
-at the script's own shapes (8 tiles of 1,024 rows, C = 8; k6b C = 128).
+at the script's own shapes (8 tiles of 1,024 rows, C = 8; k6b C = 128), and
+k5 and k7 also at ragged ones (their bodies and grid built from the shape).
 
 The script runs its kernels when imported, so each kernel body below is a
 copy with the script's file:line above it, and the grid specs are the
@@ -27,23 +28,23 @@ from laenerf_tpu_torch.perf import bisect_mosaic
 
 TILE, MAXU, C = 1024, 1024, 8
 N_TILES = 8
-T_PAD = N_TILES * TILE
 Q = 4096
 
 
-def _grid_spec(n_in, scratch=(), width=C):
+def _grid_spec(n_in, scratch=(), width=C, tile=TILE, n_tiles=N_TILES):
     return pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1, grid=(N_TILES,),
+        num_scalar_prefetch=1, grid=(n_tiles,),
         in_specs=[pl.BlockSpec(memory_space=pl.ANY)] * n_in,
-        out_specs=pl.BlockSpec((TILE, width), lambda k, lo: (k, 0),
+        out_specs=pl.BlockSpec((tile, width), lambda k, lo: (k, 0),
                                memory_space=pltpu.VMEM),
         scratch_shapes=list(scratch))
 
 
-def _run(kern, lo, *args, n_in=0, scratch=(), width=C):
+def _run(kern, lo, *args, n_in=0, scratch=(), width=C, tile=TILE,
+         n_tiles=N_TILES):
     return np.asarray(pl.pallas_call(
-        kern, grid_spec=_grid_spec(n_in, scratch, width),
-        out_shape=jax.ShapeDtypeStruct((T_PAD, width), jnp.float32),
+        kern, grid_spec=_grid_spec(n_in, scratch, width, tile, n_tiles),
+        out_shape=jax.ShapeDtypeStruct((n_tiles * tile, width), jnp.float32),
         interpret=True)(jnp.asarray(lo, jnp.int32), *args))
 
 
@@ -81,16 +82,23 @@ def _k4(lo_ref, qs_hbm, out_ref, scr_q, sem):
         scr_q[:TILE].astype(jnp.float32)[:, None], (TILE, C))
 
 
-# perf/bisect_mosaic.py:125 (k5 :124)
-def _k5(lo_ref, out_ref):
-    k = pl.program_id(0)
-    n = lo_ref[k]
+def _k5_of(tile, width):
+    """perf/bisect_mosaic.py:125 (k5 :124), tiles of tile rows by width."""
+    def kern(lo_ref, out_ref):
+        k = pl.program_id(0)
+        n = lo_ref[k]
 
-    def body(j, acc):
-        return acc + 1.0
+        def body(j, acc):
+            return acc + 1.0
 
-    acc = jax.lax.fori_loop(0, n, body, jnp.zeros((TILE, C), jnp.float32))
-    out_ref[:] = acc
+        acc = jax.lax.fori_loop(0, n, body,
+                                jnp.zeros((tile, width), jnp.float32))
+        out_ref[:] = acc
+
+    return kern
+
+
+_k5 = _k5_of(TILE, C)
 
 
 # perf/bisect_mosaic.py:150 (k6 :149)
@@ -111,11 +119,18 @@ def _k6b(lo_ref, out_ref):
     out_ref[:] = jnp.dot(oh, g, preferred_element_type=jnp.float32)
 
 
-# perf/bisect_mosaic.py:191 (k7 :190)
-def _k7(lo_ref, out_ref):
-    v = jax.lax.broadcasted_iota(jnp.int32, (MAXU,), 0)
-    out_ref[:] = jnp.broadcast_to(
-        v[:TILE].astype(jnp.float32)[:, None], (TILE, C))
+def _k7_of(tile, width):
+    """perf/bisect_mosaic.py:191 (k7 :190), tiles of tile <= MAXU rows by
+    width."""
+    def kern(lo_ref, out_ref):
+        v = jax.lax.broadcasted_iota(jnp.int32, (MAXU,), 0)
+        out_ref[:] = jnp.broadcast_to(
+            v[:tile].astype(jnp.float32)[:, None], (tile, width))
+
+    return kern
+
+
+_k7 = _k7_of(TILE, C)
 
 
 def _dma_f32():
@@ -185,6 +200,30 @@ def test_copy_1d_matches_pallas_on_edge_offsets():
         args = (q, torch.from_numpy(lo), N_TILES, TILE, C)
         np.testing.assert_array_equal(cp.copy_1d(*args).numpy(),
                                       _jax_construct("k4", args))
+
+
+@pytest.mark.parametrize("tile,width,n_tiles", [(100, 3, 7), (1, 1, 7),
+                                                (100, 8, 7), (1024, 128, 2)])
+@pytest.mark.parametrize("construct", ["k5", "k7"])
+def test_fill_matches_pallas_at_ragged_shapes(construct, tile, width,
+                                              n_tiles):
+    """k5 and k7 at the card tests' ragged shapes (tiles that start off 16
+    bytes where tile * width % 4 != 0, one-row tiles, one lane, 128 lanes),
+    the Pallas kernels' bodies and grid built from the shape. k5 on trips
+    -5, 0, 1, 3 and 199 among random ones (np.random.RandomState)."""
+    rng = np.random.RandomState(tile + width)
+    lo = rng.randint(-5, 200, n_tiles + 1).astype(np.int32)
+    lo[:min(5, n_tiles)] = (-5, 0, 1, 3, 199)[:n_tiles]
+    if construct == "k5":
+        ref = _run(_k5_of(tile, width), lo, width=width, tile=tile,
+                   n_tiles=n_tiles)
+        got = cp.dynamic_loop(torch.from_numpy(lo), n_tiles, tile, width)
+    else:
+        ref = _run(_k7_of(tile, width), np.zeros(n_tiles + 1), width=width,
+                   tile=tile, n_tiles=n_tiles)
+        got = cp.iota_rows(n_tiles, tile, width, device="cpu")
+    assert got.dtype == torch.float32 and got.shape == ref.shape
+    np.testing.assert_array_equal(got.numpy(), ref)
 
 
 def _onehot_case(case):

@@ -648,3 +648,43 @@ def test_prefetch_write_matches_plain(cuda, tile, C):
     lib = torch.repeat_interleave(lo[:n_tiles, None].expand(n_tiles, C),
                                   tile, dim=0)
     assert torch.equal(got, lib.float())
+
+
+FILL_SHAPES = [(tile, C, 7) for tile in (1, 100, 1024)
+               for C in (1, 3, 8, 128)] + [(1024, 8, 300)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile,C,n_tiles", FILL_SHAPES)
+def test_dynamic_loop_matches_plain(cuda, tile, C, n_tiles):
+    """K7 k5 on k1's fill body, one block per (tile, 2 KB slice), each
+    thread running the loop of lo[k] trips once: trips -5, 0, 1, 3, 199 and
+    4,096 among random ones in [-5, 200), tiles of 4 B to 512 KB whose starts
+    leave 16 bytes where tile * C % 4 != 0, and 300 tiles of 32 KB (4,800
+    blocks, more than a wave). Equal to the plain version."""
+    rng = np.random.RandomState(tile + C + n_tiles)
+    lo = rng.randint(-5, 200, n_tiles + 2)
+    lo[:6] = (-5, 0, 1, 3, 199, 4096)
+    lo = torch.from_numpy(rng.permutation(lo[:n_tiles]).astype(np.int32))
+    lo = lo.to(cuda)
+    before = cp.dynamic_loop.launches
+    got = cp.dynamic_loop(lo, n_tiles, tile, C)
+    torch.cuda.synchronize()
+    assert cp.dynamic_loop.launches == before + 1
+    assert torch.equal(got, cp.dynamic_loop_plain(lo, n_tiles, tile, C))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile,C,n_tiles", FILL_SHAPES)
+def test_iota_rows_matches_plain(cuda, tile, C, n_tiles):
+    """K7 k7: the fill body where C % 4 == 0 (a float4 in one row), one
+    float a thread otherwise; tiles of one row to 1,024 rows, C of 1 to 128,
+    and 300 tiles (4,800 blocks, more than a wave). Equal to the plain
+    version and to arange(tile) repeated."""
+    before = cp.iota_rows.launches
+    got = cp.iota_rows(n_tiles, tile, C, device=cuda)
+    torch.cuda.synchronize()
+    assert cp.iota_rows.launches == before + 1
+    assert torch.equal(got, cp.iota_rows_plain(n_tiles, tile, C, cuda))
+    rows = torch.arange(tile, device=cuda, dtype=torch.float32)
+    assert torch.equal(got, rows.repeat(n_tiles)[:, None].expand(-1, C))
