@@ -69,6 +69,23 @@ Phases, one or more lines each, tagged with the seconds since the start
      train-view PSNR at 100x100.
   11. profile: kernel launches and device-busy share of a few train steps,
      and K1's device time per launch inside them.
+  12. recolor: the editing path on the trained NeRF (EditPipeline's
+     phases in run_all's order). First what the centre pixel of train view
+     0 selects (project_points, grown 4000 pops): its termination point
+     and its edit dataset, for the record. Then a region seeded inside the
+     scene's centre sphere as the recolor gate seeds it, grown the same
+     way, the edit dataset, 300 LAENeRF steps (8 bases, a 16-level
+     C = 2 lg19 encoder, the palette pruned at step 200), distillation
+     with a recolored palette, 64 fine-tune steps and the eval renders;
+     checks that the edit dataset is not empty, the LAENeRF MSE falls, a
+     basis stays active, K1 launches in every LAENeRF and fine-tune step,
+     distillation leaves every pixel at or under blend_thresh as it was
+     and changes some above it, the renders are finite in [0, 1] and a
+     fresh Trainer renders the fine-tune's checkpoint equally; then K1 on
+     a LAENeRF backward's own input against its plain version and
+     index_add_, and K1's device time inside 4 more LAENeRF steps. Prints
+     the phase seconds, ms per LAENeRF and fine-tune step and the bg-MSE
+     outside the exported masks.
 Then one JSON line with every kernel of the path, the nvidia-smi line, and
 the final {"ok": true, "device": ...} line.
 
@@ -199,21 +216,26 @@ def bound_of(n_bytes, n_ops=0, ops_per_s=F32_OPS_PER_S):
                                        else "operations")
 
 
-def device_ms(fn, reps=10, name=None):
+def device_ms(fn, reps=10, name=None, tries=3):
     """Device time per call of fn: the sum of its CUDA kernels' times under
     torch.profiler, without the host's launch gaps; None if the profiler
-    saw no kernel. With name, the pair (that time, the part of it in
-    kernels whose name holds name)."""
+    saw no kernel in `tries` windows (a window sometimes records none).
+    With name, the pair (that time, the part of it in kernels whose name
+    holds name)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+    events = []
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if events:
+            break
     total = sum(e.device_time for e in events) / 1e3 / reps if events \
         else None
     if name is None:
@@ -373,66 +395,71 @@ def phase_k1(card, dev, model_cfg):
             "sites": inputs}
 
 
-def k1_main_path(card, dev, spec):
-    """K1 at the main-path shape on the uniform and the ray-ordered input
-    (main_path_rows), each within rel REL_TOL of its plain version, timed
-    against it and against index_add_ beside the bound; with the RED count
-    that k1_reds models for each input."""
+def k1_site(card, dev, site, idx, rows, T, what):
+    """K1 on one input (idx, rows into T rows), within rel REL_TOL of its
+    plain version, timed against it and against index_add_ (in turns, CUDA
+    events) beside its bound, and under the profiler; with the RED count
+    that k1_reds models. Prints one line and returns the site's entry."""
     from laenerf_tpu_torch.ops.scatter_add import (scatter_add_rows,
                                                    scatter_add_rows_plain)
 
+    got = scatter_add_rows(idx, rows, T)
+    ref = scatter_add_rows_plain(idx, rows, T)
+    torch.cuda.synchronize()
+    err = rel_err(got, ref)
+    if not err < REL_TOL:
+        raise AssertionError(f"K1 {site}: rel err {err}")
+    C = rows.shape[-1]
+    idx64, rows32 = idx.reshape(-1).long(), rows.reshape(-1, C).float()
+
+    def k1():
+        scatter_add_rows(idx, rows, T)
+
+    def plain():
+        scatter_add_rows_plain(idx, rows, T)
+
+    def library():
+        torch.zeros((T, C), device=dev).index_add_(0, idx64, rows32)
+
+    # in turns on one card: plain, library, kernel, kernel, library, plain
+    t = [cuda_ms(f) for f in (plain, library, k1, k1, library, plain)]
+    ms, library_ms, plain_ms = ((t[2] + t[3]) / 2, (t[1] + t[4]) / 2,
+                                (t[0] + t[5]) / 2)
+    (dev_ms, kernel_ms), dev_library_ms = (
+        device_ms(k1, name="scatter_add_rows_kernel"), device_ms(library))
+    # each input read once, the [T, C] f32 output written once; one f32
+    # add per update element
+    bound_ms, bound_by = bound_of(
+        idx.numel() * 4 + rows.numel() * rows.element_size() + T * C * 4,
+        n_ops=rows.numel())
+    reds = k1_reds(idx, T, C)
+    width = "float4" if C % 4 == 0 else ("float2" if C % 2 == 0 else
+                                         "scalar")
+    phase(what, f"K1 {site}: {idx.numel()} rows x C={C} as "
+                f"{list(idx.shape)} into {T} rows, rel err {err:.2e}, "
+                f"{reds} {width} REDs as k1_reds models them (computed "
+                f"from the input, not measured; {idx.numel() * C} "
+                f"scalar elements); K1 {ms:.4f} ms vs plain "
+                f"{plain_ms:.4f} ms, index_add_ alone {library_ms:.4f} ms, "
+                f"bound {bound_ms:.4f} ms ({bound_by}); device time under "
+                f"the profiler: K1 {dev_ms} ms (scatter_add_rows_kernel "
+                f"{kernel_ms} ms, the rest the zero-fill), index_add_ "
+                f"{dev_library_ms} ms ({card})")
+    return {"site": site, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "device_ms": dev_ms,
+            "kernel_device_ms": kernel_ms,
+            "library_device_ms": dev_library_ms,
+            "max_abs_err": (got - ref).abs().max().item()}
+
+
+def k1_main_path(card, dev, spec):
+    """K1 at the main-path shape on the uniform and the ray-ordered input
+    (main_path_rows), through k1_site."""
     T = spec.table_rows
-    results = []
-    for order in ("uniform", "rays"):
-        idx, rows = main_path_rows(spec, dev, order)
-        got = scatter_add_rows(idx, rows, T)
-        ref = scatter_add_rows_plain(idx, rows, T)
-        torch.cuda.synchronize()
-        err = rel_err(got, ref)
-        if not err < REL_TOL:
-            raise AssertionError(f"K1 main-path shape, {order}: rel err {err}")
-        C = rows.shape[-1]
-        idx64, rows32 = idx.reshape(-1).long(), rows.reshape(-1, C).float()
-
-        def k1():
-            scatter_add_rows(idx, rows, T)
-
-        def plain():
-            scatter_add_rows_plain(idx, rows, T)
-
-        def library():
-            torch.zeros((T, C), device=dev).index_add_(0, idx64, rows32)
-
-        # in turns on one card: plain, library, kernel, kernel, library, plain
-        t = [cuda_ms(f) for f in (plain, library, k1, k1, library, plain)]
-        ms, library_ms, plain_ms = ((t[2] + t[3]) / 2, (t[1] + t[4]) / 2,
-                                    (t[0] + t[5]) / 2)
-        (dev_ms, kernel_ms), dev_library_ms = (
-            device_ms(k1, name="scatter_add_rows_kernel"), device_ms(library))
-        # each input read once, the [T, C] f32 output written once; one f32
-        # add per update element
-        bound_ms, bound_by = bound_of(
-            idx.numel() * 4 + rows.numel() * rows.element_size() + T * C * 4,
-            n_ops=rows.numel())
-        reds = k1_reds(idx, T, C)
-        results.append({"site": order, "ms": ms, "plain_ms": plain_ms,
-                        "library_ms": library_ms, "bound_ms": bound_ms,
-                        "bound_by": bound_by, "device_ms": dev_ms,
-                        "kernel_device_ms": kernel_ms,
-                        "library_device_ms": dev_library_ms,
-                        "max_abs_err": (got - ref).abs().max().item()})
-        phase("k1", f"main path, {order}: {idx.numel()} rows x C={C} as "
-                    f"{list(idx.shape)} into {T} rows, rel err {err:.2e}, "
-                    f"{reds} float4 REDs as k1_reds models them (computed "
-                    f"from the input, not measured; {idx.numel() * C} "
-                    f"scalar elements); K1 {ms:.4f} ms vs plain "
-                    f"{plain_ms:.4f} ms, "
-                    f"index_add_ alone {library_ms:.4f} ms, bound "
-                    f"{bound_ms:.4f} ms ({bound_by}); device time under the "
-                    f"profiler: K1 {dev_ms} ms (scatter_add_rows_kernel "
-                    f"{kernel_ms} ms, the rest the zero-fill), index_add_ "
-                    f"{dev_library_ms} ms ({card})")
-    return results
+    return [k1_site(card, dev, order, *main_path_rows(spec, dev, order), T,
+                    "k1")
+            for order in ("uniform", "rays")]
 
 
 def gather_sites(dev):
@@ -1100,7 +1127,7 @@ def phase_train(card, dev, tmp):
                               m_cap_per_ray=16, density_thresh=10.0,
                               infer_chunk_events=16, infer_compact_factor=4)
     tr = Trainer(model_cfg, render_cfg, device=dev, lr=1e-2, iters=2000,
-                 eval_chunk=16384)
+                 eval_chunk=16384, workspace=f"{tmp}/ws")
     tr.mark_untrained(ds)
     losses, step_s, density = [], [], []
     for step in range(TRAIN_STEPS):
@@ -1199,28 +1226,321 @@ def phase_profile(tr, ds, steps=4):
     return k1_us
 
 
+def k1_launch_us(fn):
+    """K1's (scatter_add_rows_kernel's) mean device µs per launch while fn
+    runs, under the profiler; None if it saw no K1 launch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as p:
+        fn()
+        torch.cuda.synchronize()
+    k1 = [e.device_time for e in p.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and "scatter_add_rows_kernel" in e.name]
+    return sum(k1) / len(k1) if k1 else None
+
+
 def k1_span_turns(tr, ds, spans=(1, 16, 32, 64), steps=4):
     """K1's device time per launch inside train steps at each of `spans`
     (rows a lane walks down the backward's [samples, 64] idx), in turns:
     the spans in order, then reversed, `steps` profiled steps each."""
-    from torch.profiler import ProfilerActivity, profile
-
     times = {span: [] for span in spans}
     for span in spans + spans[::-1]:
         batches = [ds.get_batch(i % len(ds)) for i in range(steps)]
-        torch.cuda.synchronize()
-        with k1_span(span), profile(activities=[ProfilerActivity.CUDA]) as p:
-            for b in batches:
-                tr.train_one_batch(b, has_alpha=True)
-            torch.cuda.synchronize()
-        k1 = [e.device_time for e in p.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and "scatter_add_rows_kernel" in e.name]
-        times[span].append(sum(k1) / len(k1) if k1 else None)
+        with k1_span(span):
+            times[span].append(k1_launch_us(
+                lambda: [tr.train_one_batch(b, has_alpha=True)
+                         for b in batches]))
     phase("profile", "K1 (scatter_add_rows_kernel) us of device time per "
                      "launch inside train steps, by span, in turns: "
                      + ", ".join(f"span {s} {t}" for s, t in times.items()))
     return times
+
+
+# the recolor phase's step counts, cut to fit the run (the JAX package's
+# recolor gate runs 10,000 / 1,500 / 7,000)
+RECOLOR_STEPS = {"train_steps_style": 300, "distill_palette_steps": 100,
+                 "train_steps_distill": 64}
+LAENERF_LOG_EVERY = 50  # LAENeRF steps between MSE read-backs
+
+
+@contextlib.contextmanager
+def k1_capture(table_rows):
+    """Keep a copy of the first K1 input the hash-grid backward passes for
+    a table of table_rows rows (the launch itself is the real one)."""
+    from laenerf_tpu_torch.ops import hashgrid
+
+    real = hashgrid.scatter_add_rows
+    seen = {}
+
+    def capture(idx, g, rows, **kw):
+        if rows == table_rows and not seen:
+            seen.update(idx=idx.clone(), rows=g.clone())
+        return real(idx, g, rows, **kw)
+
+    hashgrid.scatter_add_rows = capture
+    try:
+        yield seen
+    finally:
+        hashgrid.scatter_add_rows = real
+
+
+def bg_mse(post, pre, mask_png):
+    """Mean squared difference of two renders outside a mask PNG (the
+    region in its G channel)."""
+    from PIL import Image
+
+    outside = np.asarray(Image.open(mask_png))[..., 1] == 0
+    return float(np.mean((post - pre)[outside] ** 2))
+
+
+def grown_region(tr, seeds):
+    """An EditGrid seeded at seeds [n, 3] and grown 4000 pops on the
+    density grid at min(mean density, 0.01), as the recolor gate grows
+    it."""
+    from laenerf_tpu_torch.editing import EditGrid
+
+    rc = tr.render_cfg
+    density = tr.occ_state.density_grid.cpu().numpy()
+    thresh = min(float(tr.occ_state.mean_density), 0.01)
+    grid = EditGrid(rc.cascades, rc.grid_size)
+    grid.new_from_points(seeds, bound=rc.bound)
+    grid.grow_region_queue(density, thresh, grow_iterations=4000)
+    return grid, density, thresh
+
+
+def centre_sphere(ds):
+    """The procedural scene's centre sphere in model space (blender (x, y,
+    z) -> (y, z, x) * scale + offset): (centre [3], radius)."""
+    from laenerf_tpu_torch.data.synthetic import DEFAULT_SPHERES
+
+    centre, radius = DEFAULT_SPHERES[0][:2]
+    return (np.asarray(centre, np.float64)[[1, 2, 0]] * ds.scale
+            + np.asarray(ds.offset), radius * ds.scale)
+
+
+def clicked_region(card, tr, ds):
+    """The region the centre pixel of train view 0 selects (project_points,
+    then grown): where its ray terminates, and what its edit dataset
+    holds. Returns the termination point."""
+    from laenerf_tpu_torch.editing import EditDataset
+    from laenerf_tpu_torch.pipeline import project_points
+
+    pts = project_points(tr, ds.poses[0], ds.intrinsics,
+                         [[ds.W // 2, ds.H // 2]], ds.H, ds.W)
+    grid, _, _ = grown_region(tr, pts)
+    try:
+        ed = EditDataset(tr, ds, grid.grid, None, depth_diff=0.5,
+                         smooth_transition=False)
+        w8s = np.concatenate([v["w8s"][:int(v["n_valid"])]
+                              for v in ed.views])
+        held = (f"{len(ed)} views, {w8s.size} rays, edit weight max "
+                f"{w8s.max():.3f}, {int((w8s > 0.5).sum())} above 0.5")
+    except RuntimeError as e:
+        held = str(e)
+    centre, radius = centre_sphere(ds)
+    phase("recolor", f"centre pixel of view 0 ends at {pts[0].round(4)} "
+                     f"({np.linalg.norm(pts[0] - centre):.3f} from the "
+                     f"centre sphere's centre, radius {radius:.3f}); its "
+                     f"region of "
+                     f"{int(grid.grid.sum())} cells gives an edit dataset "
+                     f"of {held} ({card})")
+    return pts
+
+
+def phase_recolor(card, dev, tr, ds, tmp):
+    """The recolor editing path on the trainer and scene phase_train left:
+    a region seeded inside the scene's centre sphere and grown on the
+    density grid, then the pipeline's phases (EditPipeline.run_all's order)
+    with 8 palette bases, style_lg 19 and the recolor gate's loss weights.
+    Returns K1's launches in the phase and K1's entry at the LAENeRF
+    backward's shape."""
+    from laenerf_tpu_torch.data import NeRFDataset
+    from laenerf_tpu_torch.editing import EditGrid, StyleLossWeights
+    from laenerf_tpu_torch.ops.scatter_add import scatter_add_rows
+    from laenerf_tpu_torch.pipeline import EditPipeline, PipelineConfig
+    from laenerf_tpu_torch.train import Trainer
+
+    rc = tr.render_cfg
+    test = NeRFDataset(tmp, "test")
+    pre = [tr.render_image(p, test.intrinsics, test.H, test.W)[0]
+           for p in test.poses]
+    clicked_region(card, tr, ds)
+    # the gate's seeds (scripts/recolor_gate.py:88-97): 200 points just
+    # inside a sphere of the scene, here the centre one
+    centre, radius = centre_sphere(ds)
+    u = np.random.RandomState(0).randn(200, 3)
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    edit, density, thresh = grown_region(
+        tr, (centre + 0.9 * radius * u).astype(np.float32))
+    grow = EditGrid(rc.cascades, rc.grid_size)
+    grow.grid_from_growing_queue(edit, density, thresh)
+    phase("recolor", f"region: 200 seeds inside the centre sphere, "
+                     f"{int(edit.grid.sum())} cells grown (4000 pops, "
+                     f"thresh {thresh:.4g}), grow grid "
+                     f"{int(grow.grid.sum())} cells")
+
+    cfg = PipelineConfig(
+        mode="recolor", num_palette_bases=8, style_lg=19, depth_diff=0.5,
+        weights=StyleLossWeights(
+            offset_loss=1e-4, weight_loss_uniform=1e-5,
+            weight_loss_non_uniform=1e-5, palette_loss_valid=1e-4,
+            palette_loss_distinct=1e-4, warmup_iterations=100),
+        **RECOLOR_STEPS)
+    ws = f"{tmp}/recolor_ws"
+    pipe = EditPipeline(tr, ds, cfg, ws, edit, grow)
+    launches = {}
+
+    pipe.init_phase()
+    ed = pipe.edit_dataset
+    if len(ed) == 0:
+        raise AssertionError("the edit dataset is empty")
+    n_rays = sum(int(v["n_valid"]) for v in ed.views)
+    w8s = np.concatenate([v["w8s"][:int(v["n_valid"])] for v in ed.views])
+    phase("recolor", f"edit dataset: {len(ed)} views ({len(ed.occluded)} "
+                     f"occluded), {n_rays} rays (edit weight min/median/max "
+                     f"{w8s.min():.3f}/{np.median(w8s):.3f}/{w8s.max():.3f}),"
+                     f" padded to {ed.n_pad} a view, crops "
+                     f"{ed.crop_h}x{ed.crop_w}")
+
+    st = pipe.style_trainer
+    spec = st.cfg.grid_spec
+    stamps = [time.perf_counter()]
+    before = scatter_add_rows.launches
+    with k1_capture(spec.table_rows) as captured:
+        pipe.train_laenerf_phase(
+            log_every=LAENERF_LOG_EVERY,
+            log_fn=lambda m: m.startswith("[laenerf] step")
+            and stamps.append(time.perf_counter()))
+    launches["laenerf"] = scatter_add_rows.launches - before
+    steps = cfg.train_steps_style
+    if launches["laenerf"] < steps:
+        raise AssertionError(f"K1 launched {launches['laenerf']} times in "
+                             f"{steps} LAENeRF steps")
+    mse = st.mse_history
+    first, last = float(np.mean(mse[:50])), float(np.mean(mse[-50:]))
+    if not last < first:
+        raise AssertionError(f"LAENeRF MSE did not fall: {first} -> {last}")
+    n_active = int(st.active.sum())
+    if n_active < 1:
+        raise AssertionError("palette pruning left no active basis")
+    chunk_ms = np.diff(stamps) * 1e3 / LAENERF_LOG_EVERY
+    step_ms = float(np.median(chunk_ms))
+    phase("recolor", f"LAENeRF: {steps} steps, MSE {first:.5f} -> "
+                     f"{last:.5f} (first/last 50), {n_active}/8 bases "
+                     f"active after pruning, {step_ms:.2f} ms/step median "
+                     f"(of {len(chunk_ms)} chunks of {LAENERF_LOG_EVERY}; "
+                     f"MSE read once a chunk), K1 {launches['laenerf']} "
+                     f"launches ({card})")
+
+    palette = st.model.palette.detach().cpu().numpy()
+    cfg.palette_mod = np.clip(palette * np.array([1.8, 0.4, 0.35]), 0, 1)
+    images = ds.images.copy()
+    stats = pipe.distill_phase(log_fn=lambda m: None)
+    # every pixel at or under blend_thresh keeps its value; in a view with
+    # pixels above it, some change (the edit lands); and some view has them
+    above, changed = [], 0
+    for v in ed.views:
+        i, n = int(v["view_index"]), int(v["n_valid"])
+        w8s = np.zeros(ds.H * ds.W, np.float32)
+        w8s[v["inds"][:n]] = v["w8s"][:n]
+        old = images[i][..., :3].reshape(-1, 3)
+        new = ds.images[i][..., :3].reshape(-1, 3)
+        under = w8s <= cfg.blend_thresh
+        if not np.array_equal(new[under], old[under]):
+            raise AssertionError(f"view {i}: a pixel at or under "
+                                 f"blend_thresh changed")
+        above.append(int((~under).sum()))
+        if above[-1] and not np.any(new[~under] != old[~under]):
+            raise AssertionError(f"view {i}: no pixel above blend_thresh "
+                                 f"changed")
+        changed += int(np.any(new != old, axis=1).sum())
+    if not changed:
+        raise AssertionError("distillation changed no pixel of any view")
+    phase("recolor", f"distilled {len(ed)} views: {changed} pixels "
+                     f"changed; pixels above blend_thresh "
+                     f"{cfg.blend_thresh} by view {above}, none at or "
+                     f"under it changed; sparsity "
+                     f"{stats['sparsity_loss']:.4f}, tv "
+                     f"{stats['tv_loss']:.4g}")
+
+    before = scatter_add_rows.launches
+    losses = pipe.finetune_phase(log_fn=lambda m: None)
+    launches["finetune"] = scatter_add_rows.launches - before
+    steps = cfg.train_steps_distill
+    losses = torch.stack(losses)
+    if not bool(torch.isfinite(losses).all()):
+        raise AssertionError("non-finite fine-tune loss")
+    if launches["finetune"] < steps:
+        raise AssertionError(f"K1 launched {launches['finetune']} times in "
+                             f"{steps} fine-tune steps")
+    ft_ms = 1e3 * pipe.timer["distill_nerf"] / steps
+    phase("recolor", f"fine-tune: {steps} steps, loss "
+                     f"{float(losses[0]):.5f} -> {float(losses[-1]):.5f}, "
+                     f"{ft_ms:.1f} ms/step mean (occupancy refreshes "
+                     f"included), K1 {launches['finetune']} launches "
+                     f"({card})")
+
+    results = pipe.eval_phase(test_dataset=test, log_fn=lambda m: None)
+    recolor_launches = scatter_add_rows.launches
+    post = []
+    for p in test.poses:
+        img = tr.render_image(p, test.intrinsics, test.H, test.W)[0]
+        lo, hi = float(np.nanmin(img)), float(np.nanmax(img))
+        if not np.isfinite(img).all() or lo < 0.0 or hi > 1.0 + 1e-5:
+            raise AssertionError(f"eval render out of [0, 1]: [{lo}, {hi}]")
+        post.append(img)
+    mses = [bg_mse(a, b, f"{ws}/masks/test/{i:03d}.png")
+            for i, (a, b) in enumerate(zip(post, pre))]
+    timings = pipe.timer.summary()
+    phase("recolor", f"eval: train PSNR {results['psnr_train']:.2f} dB; "
+                     f"{len(post)} test renders finite in [0, 1]; bg-MSE "
+                     f"against the pre-edit renders outside the exported "
+                     f"masks (for the record): "
+                     + ", ".join(f"{m:.3g}" for m in mses))
+    phase("recolor", "phase seconds (PhaseTimer): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in timings.items())
+        + f"; step cuts: train_steps_style 300 (gate 10,000), "
+          f"distill_palette_steps 100 (1,500), train_steps_distill 64 "
+          f"(7,000), warmup_iterations 100 (1,000) ({card})")
+
+    # the checkpoint the fine-tune saved renders as the trainer does
+    fresh = Trainer(tr.model_cfg, rc, device=dev, workspace=tr.workspace)
+    if not fresh.load_checkpoint():
+        raise AssertionError("no checkpoint after the fine-tune")
+    a = fresh.render_image(test.poses[0], test.intrinsics, test.H, test.W)[0]
+    diff = float(np.abs(a - post[0]).max())
+    if not diff <= 1e-6:
+        raise AssertionError(f"reloaded checkpoint renders {diff} off")
+    phase("recolor", f"checkpoint {fresh.global_step} reloaded by a fresh "
+                     f"Trainer: test render within {diff:.2e}")
+
+    # K1 on the captured LAENeRF backward, against its plain version
+    if "idx" not in captured:
+        raise AssertionError("no LAENeRF backward reached K1")
+    idx, rows = captured["idx"], captured["rows"]
+    T, C = spec.table_rows, rows.shape[-1]
+    site = k1_site(card, dev, "laenerf", idx, rows, T, "recolor")
+    # back to back, the 49 MB output stays in the 50 MB L2; inside LAENeRF
+    # steps (the table's gather and its Adam update between launches) it
+    # does not. Four more steps, after the path's counts were read (the
+    # LAENeRF is not used again)
+    us = k1_launch_us(lambda: st.train_steps(4))
+    site["step_kernel_device_ms"] = None if us is None else us / 1e3
+    phase("recolor", f"K1 (scatter_add_rows_kernel) inside 4 LAENeRF "
+                     f"steps: {us} us of device time per launch (None: not "
+                     f"measured); back to back "
+                     f"{site['kernel_device_ms']} ms ({card})")
+    # the zero-fill, idx, rows, and an 8-byte read plus an 8-byte write for
+    # each float2 RED that k1_reds models
+    red_bytes = (idx.numel() * 4 + rows.numel() * 2 + T * C * 4
+                 + k1_reds(idx, T, C) * 16)
+    phase("recolor", f"K1 laenerf bound with the zero-fill, idx, rows and "
+                     f"one 8-byte read-modify-write per RED (modelled "
+                     f"count): {1e3 * red_bytes / HBM_BYTES_PER_S:.4f} ms "
+                     f"(bytes, {red_bytes} B at 3.35 TB/s)")
+    return recolor_launches, site
 
 
 def main():
@@ -1289,6 +1609,12 @@ def main():
         phase("train", f"K1 launches on the main path: {launches}")
         k1_train_us = phase_profile(tr, ds)
         k1_span_turns(tr, ds)
+        scatter_add_rows.launches = 0
+        recolor_launches, laenerf_site = phase_recolor(card, dev, tr, ds,
+                                                       tmp)
+        launches += recolor_launches
+        phase("recolor", f"K1 launches on the main path, train and recolor: "
+                         f"{launches}")
 
     gather_src = "laenerf_tpu_torch/csrc/gather_probes.cu"
     scatter_src = "laenerf_tpu_torch/csrc/sorted_scatter.cu"
@@ -1308,7 +1634,7 @@ def main():
         "library_device_ms": k1["library_device_ms"],
         "train_step_device_ms": (None if k1_train_us is None
                                  else k1_train_us / 1e3),
-        "sites": k1["sites"],
+        "sites": k1["sites"] + [laenerf_site],
     }] + [kernel_entry(name, gather_src, gather_results, gather_launches)
           for name in ("take_rows", "take_lanes", "grid_probe")]
         + [kernel_entry(name, scatter_src, scatter_results, scatter_launches)

@@ -5,9 +5,14 @@ Same layout as the JAX package:
   ops/     — hash grid, SH, march, compaction, composite, K1 scatter-add,
              K2-K4 gather probes, K5-K6 sorted scatter-adds, K7 construct
              probes
-  models/  — NeRF network, occupancy grid, volume renderer
+  models/  — NeRF network, occupancy grid, volume renderer (train,
+             inference and distill paths)
   data/    — rays, blender-format dataset, procedural synthetic scenes
-  train/   — optimizer, train step, Trainer
+  train/   — optimizer, train step, Trainer, metrics, checkpoints
+  editing/ — edit grid, LAENeRF and its trainer, edit dataset,
+             distillation (the recolor mode)
+  pipeline/ — the headless recolor pipeline (EditPipeline.run_all)
+  utils/   — phase timers, palette images, PNG writing
   csrc/    — CUDA C++ sources of the hand-written kernels
   perf/    — H100 microbenchmark entry points (python -m ...perf.<name>)
 

@@ -1,31 +1,102 @@
-"""Parameter conversion between the JAX package's param pytree and the
-port's NeRFNetwork state dict.
+"""Parameter conversion between the JAX package's param pytrees and the
+port's modules, and a numpy-only reader of the JAX package's checkpoints.
 
-The JAX tree (as numpy arrays) is {"encoder": [T, C], "sigma_net": [W...],
-"color_net": [W...]}, with MLP weights stored [in, out]; nn.Linear stores
-[out, in], so the weights are transposed both ways.
+The JAX NeRF tree (as numpy arrays) is {"encoder": [T, C], "sigma_net":
+[W...], "color_net": [W...]}; the LAENeRF tree is {"encoder": [T, C],
+"weight_net": [W...], "offset_net": [W...], "palette": [K, 3]}. The JAX
+package stores MLP weights [in, out]; nn.Linear stores [out, in], so the
+weights are transposed both ways.
 """
+
+import re
 
 import numpy as np
 import torch
 
 _NETS = ("sigma_net", "color_net")
+_LAENERF_NETS = ("weight_net", "offset_net")
 
 
-def params_from_jax(tree):
-    """JAX param tree (numpy arrays) -> NeRFNetwork state dict."""
-    sd = {"encoder": torch.tensor(np.asarray(tree["encoder"], np.float32))}
-    for name in _NETS:
+def _from_jax(tree, nets, plain):
+    sd = {k: torch.tensor(np.asarray(tree[k], np.float32)) for k in plain}
+    for name in nets:
         for i, w in enumerate(tree[name]):
             sd[f"{name}.layers.{i}.weight"] = torch.tensor(
                 np.ascontiguousarray(np.asarray(w, np.float32).T))
     return sd
 
 
+def tree_from_state_dict(sd):
+    """A port state dict (or any {parameter name: tensor} of the same
+    names) -> the JAX-layout tree of numpy arrays."""
+    tree = {}
+    for name, v in sd.items():
+        a = v.detach().cpu().numpy() if isinstance(v, torch.Tensor) \
+            else np.asarray(v)
+        m = re.fullmatch(r"(\w+)\.layers\.(\d+)\.weight", name)
+        if m is None:
+            tree[name] = a
+            continue
+        layers = tree.setdefault(m.group(1), [])
+        i = int(m.group(2))
+        layers.extend([None] * (i + 1 - len(layers)))
+        layers[i] = np.ascontiguousarray(a.T)
+    return tree
+
+
+def params_from_jax(tree):
+    """JAX NeRF param tree (numpy arrays) -> NeRFNetwork state dict."""
+    return _from_jax(tree, _NETS, ("encoder",))
+
+
 def params_to_numpy(net):
     """NeRFNetwork -> JAX-layout param tree of numpy arrays."""
-    tree = {"encoder": net.encoder.detach().cpu().numpy()}
-    for name in _NETS:
-        tree[name] = [np.ascontiguousarray(lin.weight.detach().cpu().numpy().T)
-                      for lin in getattr(net, name).layers]
-    return tree
+    return tree_from_state_dict(net.state_dict())
+
+
+def laenerf_params_from_jax(tree):
+    """JAX LAENeRF param tree (numpy arrays) -> LAENeRF state dict."""
+    return _from_jax(tree, _LAENERF_NETS, ("encoder", "palette"))
+
+
+def laenerf_params_to_numpy(model):
+    """LAENeRF -> JAX-layout param tree of numpy arrays."""
+    return tree_from_state_dict(model.state_dict())
+
+
+def _subtree(data, prefix):
+    """The {"encoder": ..., "<net>": [...], ...} tree stored under the
+    keystr prefix (e.g. "['state'].params")."""
+    tree = {}
+    pat = re.compile(re.escape(prefix) + r"\['(\w+)'\](?:\[(\d+)\])?$")
+    for key in data:
+        m = pat.match(key)
+        if m is None:
+            continue
+        if m.group(2) is None:
+            tree[m.group(1)] = data[key]
+        else:
+            layers = tree.setdefault(m.group(1), {})
+            layers[int(m.group(2))] = data[key]
+    return {k: [v[i] for i in sorted(v)] if isinstance(v, dict) else v
+            for k, v in tree.items()}
+
+
+def load_jax_checkpoint(path):
+    """Read a JAX Trainer checkpoint (.npz) with numpy alone.
+
+    Returns {"params": NeRFNetwork state dict, "ema_params": state dict,
+    "occ": {"density_grid", "occupancy", "mean_density", "iter_density"}
+    numpy arrays, "step": int}.
+    """
+    with np.load(path, allow_pickle=False) as z:
+        data = {k: z[k] for k in z.files}
+    occ = {k: data[f"['occ'].{k}"] for k in (
+        "density_grid", "occupancy", "mean_density", "iter_density")}
+    return {
+        "params": params_from_jax(_subtree(data, "['state'].params")),
+        "ema_params": params_from_jax(_subtree(data,
+                                               "['state'].ema_params")),
+        "occ": occ,
+        "step": int(data["['state'].step"]),
+    }

@@ -4,8 +4,9 @@ laenerf_tpu/data/provider.py, blender layout only).
 Reads transforms_{split}.json and the RGBA pngs (with Pillow), applies the
 instant-ngp pose convention (axis cycle + scale/offset), derives intrinsics
 from fl_x / camera_angle_x, and serves batches of uniformly sampled pixels
-as numpy arrays. The colmap layout, error-map and patch sampling, and the
-linear color space are not ported yet.
+as numpy arrays, with each view's depth target once distillation has
+filled `depths` (editing/distill.py). The colmap layout, error-map and
+patch sampling, and the linear color space are not ported yet.
 """
 
 import json
@@ -86,6 +87,7 @@ class NeRFDataset:
 
         self.poses = np.stack(poses, axis=0)
         self.images = np.stack(images, axis=0)  # [B, H, W, C]
+        self.depths = []  # [H * W] per view, filled by distillation
         self.radius = float(np.linalg.norm(self.poses[:, :3, 3],
                                            axis=-1).mean())
         self.intrinsics = self._load_intrinsics(transform)
@@ -121,7 +123,7 @@ class NeRFDataset:
         """One training batch for view `index` as host numpy arrays."""
         inds = self.sample_pixel_inds(index)
         flat = self.images[index].reshape(-1, self.images.shape[-1])
-        return {
+        batch = {
             "pose": self.poses[index],
             "intrinsics": self.intrinsics,
             "inds": inds,
@@ -130,6 +132,9 @@ class NeRFDataset:
             "W": self.W,
             "pixels": flat[inds],
         }
+        if len(self.depths) > 0:  # the fine-tune's depth supervision
+            batch["depth"] = np.asarray(self.depths[index])[inds]
+        return batch
 
     def epoch_indices(self, shuffle=None):
         idx = np.arange(len(self.poses))

@@ -1,5 +1,5 @@
-"""Volume-rendering paths: training and inference (counterpart of
-laenerf_tpu/models/renderer.py).
+"""Volume-rendering paths: training, inference and distillation
+(counterpart of laenerf_tpu/models/renderer.py).
 
   * train: march (no gradient) -> compact the valid samples -> one network
     eval -> scatter back -> differentiable masked composite.
@@ -149,34 +149,43 @@ def render_rays_train(net: NeRFNetwork, occupancy, rays_o, rays_d, *,
     }
 
 
-def _march_round(event, t, fars, alive, K_slots: int, K_march: int):
+def _march_round(event, t, fars, alive, K_slots: int, K_march: int,
+                 with_edit: bool = False):
     """March up to K_march events, packing occupied samples into K_slots
     per-ray slots. A ray that fills every slot freezes at the overflowing
     event (its t stays there) and resumes next round. With K_march <=
-    K_slots this is the plain one-event-per-slot march.
+    K_slots this is the plain one-event-per-slot march. with_edit also
+    packs each sample's edit-grid flag (the event must come from
+    make_march_event with an edit grid).
 
-    Returns (t_next [N], ts [N,Ks], dt [N,Ks], valid [N,Ks]).
+    Returns (t_next [N], ts [N,Ks], dt [N,Ks], valid [N,Ks], eocc [N,Ks]
+    bool, all False without with_edit).
     """
     N = t.shape[0]
     dev = t.device
     if K_march <= K_slots:
-        ts_l, dt_l, occ_l = [], [], []
+        ts_l, dt_l, occ_l, e_l = [], [], [], []
         for _ in range(K_slots):
-            t_next, (ts_s, dt_s, occ) = event(t)
+            t_next, (ts_s, dt_s, occ, eocc) = event(t)
             done = t >= fars
             ts_l.append(ts_s)
             dt_l.append(dt_s)
             occ_l.append(occ & ~done)
+            if with_edit:
+                e_l.append(eocc)
             t = torch.where(done, t, t_next)
+        eocc = (torch.stack(e_l, 1) if with_edit else
+                torch.zeros((N, K_slots), dtype=torch.bool, device=dev))
         return (t, torch.stack(ts_l, 1), torch.stack(dt_l, 1),
-                torch.stack(occ_l, 1) & alive[:, None])
+                torch.stack(occ_l, 1) & alive[:, None], eocc)
 
     slots = torch.arange(K_slots, dtype=torch.int32, device=dev)
     cnt = torch.zeros((N,), dtype=torch.int32, device=dev)
     ts_b = torch.zeros((N, K_slots), dtype=torch.float32, device=dev)
     dt_b = torch.zeros_like(ts_b)
+    e_b = torch.zeros((N, K_slots), dtype=torch.bool, device=dev)
     for _ in range(K_march):
-        t_next, (ts_s, dt_s, occ) = event(t)
+        t_next, (ts_s, dt_s, occ, eocc) = event(t)
         done = t >= fars
         occ = occ & ~done & alive
         full = occ & (cnt >= K_slots)
@@ -184,9 +193,11 @@ def _march_round(event, t, fars, alive, K_slots: int, K_march: int):
         oh = (slots[None, :] == cnt[:, None]) & write[:, None]
         ts_b = torch.where(oh, ts_s[:, None], ts_b)
         dt_b = torch.where(oh, dt_s[:, None], dt_b)
+        if with_edit:
+            e_b = torch.where(oh, eocc[:, None], e_b)
         cnt = cnt + write.to(torch.int32)
         t = torch.where(done | full, t, t_next)
-    return t, ts_b, dt_b, slots[None, :] < cnt[:, None]
+    return t, ts_b, dt_b, slots[None, :] < cnt[:, None], e_b
 
 
 def _eval_compacted(net, render_cfg: RenderConfig, rays_o, rays_d, ts,
@@ -266,7 +277,8 @@ def render_rays_infer(net: NeRFNetwork, occupancy, rays_o, rays_d, *,
         alive = (acc["T"] >= render_cfg.t_thresh) & (t < fars)
         if not bool(torch.any(alive)):
             break
-        t_new, ts, dt, valid = _march_round(event, t, fars, alive, K, K_march)
+        t_new, ts, dt, valid, _ = _march_round(event, t, fars, alive, K,
+                                               K_march)
         sig, rgb, valid_e, t = _eval_compacted(
             net, render_cfg, rays_o, rays_d, ts, valid, t_new, gather_table)
         acc = composite_chunk(acc, sig, rgb, dt, ts, valid_e, t0,
@@ -289,3 +301,94 @@ def build_march_tables(occupancy, *, render_cfg: RenderConfig):
     """Per-frame flat chebyshev skip field, shared by a frame's chunks."""
     return build_skip_field(occupancy,
                             bound=render_cfg.march_cfg.bound).reshape(-1)
+
+
+def _composite_distill(acc, ws_edit, depth_edit, sig, rgb, dt, ts, valid,
+                       eocc, t_thresh: float):
+    """One distill round's accumulation: transmittance compositing plus the
+    sums of the weights and depths of edit-flagged samples. Depth here is
+    the absolute ray parameter t_abs = ts + dt."""
+    sd = torch.where(valid, sig * dt, 0.0)
+    csum = torch.cumsum(sd, dim=1)
+    T_in = acc["T"][:, None]
+    T_incl = T_in * torch.exp(-csum)
+    T_excl = T_in * torch.exp(-(csum - sd))
+    alpha = 1.0 - torch.exp(-sd)
+    weights = alpha * T_excl
+    prev_T = torch.cat([T_in, T_incl[:, :-1]], dim=1)
+    weights = weights * (prev_T >= t_thresh).to(weights.dtype)
+    t_abs = ts + dt
+    e = (eocc & valid).to(weights.dtype)
+    new_acc = {
+        "T": T_incl[:, -1],
+        "ws": acc["ws"] + torch.sum(weights, dim=1),
+        "depth": acc["depth"] + torch.sum(weights * t_abs, dim=1),
+        "rgb": acc["rgb"] + torch.sum(weights[..., None] * rgb, dim=1),
+    }
+    return (new_acc, ws_edit + torch.sum(weights * e, dim=1),
+            depth_edit + torch.sum(weights * t_abs * e, dim=1))
+
+
+@torch.no_grad()
+def render_rays_distill(net: NeRFNetwork, occupancy, edit_grid, rays_o,
+                        rays_d, *, render_cfg: RenderConfig,
+                        perturb: bool = False, noises=None, generator=None,
+                        grow_grid: bool = False, skip_flat=None,
+                        gather_table=None):
+    """Distillation-path rendering with a second (edit) grid.
+
+    Marches the density grid (or the edit grid itself when grow_grid),
+    flags the samples inside the edit grid and accumulates their weights
+    and depths apart. Depth is the absolute ray parameter (sum of w * t), so
+    x_term = rays_o + depth * rays_d.
+
+    edit_grid: [CAS, H, H, H] uint8, the density grid's layout.
+    skip_flat: optional prebuilt flat skip field of the march source, so a
+      frame's chunks share one. gather_table as in render_rays_infer.
+    Returns dict(image [N,3] (no background), depth, depth_edit, weights,
+      weights_edit, nears [N], x_term [N,3], min_near 0-d).
+    """
+    N = rays_o.shape[0]
+    dev = rays_o.device
+    cfg = render_cfg.march_cfg
+    K = render_cfg.infer_chunk_events
+    K_march = render_cfg.infer_march_events or K
+    nears, fars = near_far_from_aabb(rays_o, rays_d, _aabb(cfg.bound, dev),
+                                     render_cfg.min_near)
+    noises = _noises(N, perturb, noises, generator, dev)
+    t0 = nears + torch.clamp(nears * cfg.dt_gamma, cfg.dt_min,
+                             cfg.dt_max) * noises
+    if skip_flat is None:
+        march_src = edit_grid if grow_grid else occupancy
+        skip_flat = build_skip_field(march_src, bound=cfg.bound).reshape(-1)
+    event = make_march_event(rays_o, rays_d, skip_flat, cfg,
+                             edit_flat=edit_grid.reshape(-1))
+
+    t = t0
+    zeros = torch.zeros((N,), dtype=torch.float32, device=dev)
+    acc = {"T": torch.ones_like(zeros), "ws": zeros, "depth": zeros,
+           "rgb": torch.zeros((N, 3), dtype=torch.float32, device=dev)}
+    ws_edit, depth_edit = zeros, zeros
+    max_rounds = (cfg.max_steps // K) * max(render_cfg.infer_compact_factor, 1)
+    for _ in range(max_rounds):
+        alive = (acc["T"] >= render_cfg.t_thresh) & (t < fars)
+        if not bool(torch.any(alive)):
+            break
+        t_new, ts, dt, valid, eocc = _march_round(event, t, fars, alive, K,
+                                                  K_march, with_edit=True)
+        sig, rgb, valid, t = _eval_compacted(
+            net, render_cfg, rays_o, rays_d, ts, valid, t_new, gather_table)
+        acc, ws_edit, depth_edit = _composite_distill(
+            acc, ws_edit, depth_edit, sig, rgb, dt, ts, valid, eocc,
+            render_cfg.t_thresh)
+
+    return {
+        "image": acc["rgb"],
+        "depth": acc["depth"],
+        "depth_edit": depth_edit,
+        "weights": acc["ws"],
+        "weights_edit": ws_edit,
+        "x_term": rays_o + acc["depth"][:, None] * rays_d,
+        "nears": nears,
+        "min_near": torch.amin(nears),
+    }

@@ -162,12 +162,15 @@ def build_skip_field(occupancy, bound=None):
     return field
 
 
-def make_march_event(rays_o, rays_d, skip_flat, cfg: MarchConfig):
+def make_march_event(rays_o, rays_d, skip_flat, cfg: MarchConfig,
+                     edit_flat=None):
     """Per-event march closure with per-ray invariants hoisted.
 
-    Returns event(t) -> (t_next, (ts, dt, occ)), all [N]: one skip-field
-    lookup per event; occupied cells take a sample and advance dt, empty ones
-    jump on the dt lattice.
+    Returns event(t) -> (t_next, (ts, dt, occ, edit_occ)), all [N]: one
+    skip-field lookup per event; occupied cells take a sample and advance
+    dt, empty ones jump on the dt lattice. edit_occ says whether the event's
+    cell is set in the flat edit grid `edit_flat` (the distill path), and is
+    None without one.
     """
     H = cfg.grid_size
     bound = cfg.bound
@@ -216,8 +219,10 @@ def make_march_event(rays_o, rays_d, skip_flat, cfg: MarchConfig):
             flat_idx = ((level * H + nx) * H + ny) * H + nz
             mip_mul = mip_bound
 
-        f = skip_flat[flat_idx.long()].to(torch.int32)
+        flat_idx = flat_idx.long()
+        f = skip_flat[flat_idx].to(torch.int32)
         occ = f == 0
+        edit_occ = None if edit_flat is None else edit_flat[flat_idx] > 0
 
         pos = torch.stack([x, y, z], dim=-1)
         c = torch.stack([nx, ny, nz], dim=-1).to(torch.float32)
@@ -239,7 +244,7 @@ def make_march_event(rays_o, rays_d, skip_flat, cfg: MarchConfig):
         t_skip = t + torch.clamp(n_skip, min=1.0) * dt
 
         t_next = torch.where(occ, t + dt, t_skip)
-        return t_next, (t, dt, occ)
+        return t_next, (t, dt, occ, edit_occ)
 
     return event
 
@@ -270,7 +275,7 @@ def march_rays_train(rays_o, rays_d, occupancy, nears, fars, noises,
     for i in range(S):
         if i % blk == 0 and blk < S and not bool(torch.any(t < fars)):
             break
-        t_next, (ts, dt, occ) = event(t)
+        t_next, (ts, dt, occ, _) = event(t)
         done = t >= fars
         ts_l.append(ts)
         dts_l.append(dt)

@@ -1,1 +1,3 @@
 from .trainer import Trainer, train_step, occ_update, make_optimizer
+from .checkpoints import CheckpointManager, load_pytree, save_pytree
+from .metrics import LPIPSMeter, psnr, psnr_meter, ssim, ssim_meter

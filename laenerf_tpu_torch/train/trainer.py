@@ -2,26 +2,32 @@
 0.99, eps=1e-15) with LambdaLR decay to 0.1*lr at the last step, EMA(0.95)
 of the parameters, per-pixel random background compositing for RGBA
 targets, an occupancy refresh every 16 steps (full while fewer than 16
-updates ran, partial after), and chunked tile-ordered full-image rendering
-with the EMA parameters.
+updates ran, partial after), chunked tile-ordered full-image rendering
+with the EMA parameters, the distillation fine-tune step (with optional
+depth supervision) and full-frame distill renders, evaluation with PSNR and
+SSIM, and checkpoints in the JAX package's npz layout.
 
 Randomness comes from one torch.Generator per Trainer (seeded by `seed`);
 every draw can be injected instead (`bg`, `noises`, occupancy `jitter`).
-Distillation, NPR and CLIP steps, evaluation and checkpoints are not ported
-yet.
+The NPR and CLIP steps are not ported yet.
 """
 
 import copy
+import os
+from types import SimpleNamespace
 
 import numpy as np
 import torch
 
 from ..data.rays import get_rays, pixel_rays, tile_raster_order
 from ..models.nerf import NeRFConfig, gather_table_for, nerf_density, nerf_init
-from ..models.occupancy import (mark_untrained_grid, occupancy_init,
-                                update_occupancy)
+from ..models.occupancy import (OccupancyState, mark_untrained_grid,
+                                occupancy_init, update_occupancy)
 from ..models.renderer import (RenderConfig, build_march_tables,
-                               render_rays_infer, render_rays_train)
+                               render_rays_distill, render_rays_infer,
+                               render_rays_train)
+from .checkpoints import CheckpointManager, load_pytree
+from .metrics import LPIPSMeter, psnr_meter, ssim_meter
 
 
 def configure_matmul_precision():
@@ -44,7 +50,9 @@ def make_optimizer(params, lr: float, iters: int):
 def train_step(net, ema_net, optimizer, scheduler, occupancy, pose,
                intrinsics, inds, pixels, *, render_cfg: RenderConfig,
                ema_decay: float, has_alpha: bool, bg_white: bool, H: int,
-               W: int, bg=None, noises=None, generator=None):
+               W: int, bg=None, noises=None, generator=None,
+               distill: bool = False, depth_target=None,
+               depth_weight: float = 1e-3):
     """One optimization step.
 
     Args:
@@ -53,6 +61,9 @@ def train_step(net, ema_net, optimizer, scheduler, occupancy, pose,
       bg: optional [N, 3] random background in [0, 1) for RGBA targets
         (drawn from `generator` when not given).
       noises: optional [N] march perturbation in [0, 1).
+      distill: the fine-tune on distilled images; with a depth_target [N]
+        (absolute ray depth, 0 where unsupervised) it adds
+        depth_weight * mean(((depth - (target - near)) * [target > 0])^2).
     Returns:
       aux dict: loss (0-d tensor), per_ray_error [N], n_samples [N]. The
       step's gradients stay in each parameter's .grad.
@@ -75,6 +86,10 @@ def train_step(net, ema_net, optimizer, scheduler, occupancy, pose,
                             noises=noises, generator=generator)
     per_ray = torch.mean((out["image"] - gt) ** 2, dim=-1)
     loss = torch.mean(per_ray)
+    if distill and depth_target is not None:
+        dw = (depth_target > 0).to(torch.float32)
+        loss = loss + depth_weight * torch.mean(
+            ((out["depth"] - (depth_target - out["nears"])) * dw) ** 2)
     loss.backward()
     optimizer.step()
     scheduler.step()
@@ -99,13 +114,15 @@ def occ_update(net, occ_state, *, bound: float, full: bool,
 
 
 class Trainer:
-    """Host-side training orchestration for the NeRF main path."""
+    """Host-side training orchestration: the NeRF main path, the distill
+    fine-tune, evaluation and (with a `workspace`) checkpoints and a log."""
 
     def __init__(self, model_cfg: NeRFConfig, render_cfg: RenderConfig, *,
                  device="cuda", lr: float = 1e-2, iters: int = 30000,
                  ema_decay: float = 0.95, update_interval: int = 16,
                  bg_white: bool = False, eval_chunk: int = 16384,
-                 seed: int = 0):
+                 seed: int = 0, workspace=None, name: str = "ngp",
+                 max_keep_ckpt: int = 2):
         configure_matmul_precision()
         self.device = torch.device(device)
         self.model_cfg = model_cfg
@@ -125,6 +142,19 @@ class Trainer:
                                         render_cfg.grid_size,
                                         device=self.device)
         self.global_step = 0
+        self.stats = {"loss": [], "psnr": []}
+        self.workspace = workspace
+        self.ckpt = None
+        if workspace is not None:
+            os.makedirs(workspace, exist_ok=True)
+            self.ckpt = CheckpointManager(workspace, name=name,
+                                          max_keep=max_keep_ckpt)
+
+    def log(self, msg):
+        print(msg, flush=True)
+        if self.workspace is not None:
+            with open(os.path.join(self.workspace, "log.txt"), "a") as f:
+                f.write(msg + "\n")
 
     def _tensor(self, a, dtype=torch.float32):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
@@ -149,7 +179,7 @@ class Trainer:
             generator=self.generator,
         )
 
-    def train_one_batch(self, batch, has_alpha: bool):
+    def _step(self, batch, has_alpha: bool, **kw):
         self.maybe_update_occupancy()
         aux = train_step(
             self.net, self.ema_net, self.optimizer, self.scheduler,
@@ -159,10 +189,25 @@ class Trainer:
             self._tensor(batch["pixels"]), render_cfg=self.render_cfg,
             ema_decay=self.ema_decay, has_alpha=has_alpha,
             bg_white=self.bg_white, H=batch["H"], W=batch["W"],
-            generator=self.generator,
+            generator=self.generator, **kw,
         )
         self.global_step += 1
         return aux
+
+    def train_one_batch(self, batch, has_alpha: bool):
+        return self._step(batch, has_alpha)
+
+    def train_one_batch_distill(self, batch, has_alpha: bool,
+                                depth_sup: bool = False, bg=None,
+                                noises=None):
+        """Fine-tune step on distilled images; with depth_sup, the batch's
+        "depth" (absolute ray depth of the edit, 0 elsewhere) supervises
+        the rendered depth. bg and noises may be given as in train_step."""
+        depth_target = None
+        if depth_sup and "depth" in batch:
+            depth_target = self._tensor(batch["depth"])
+        return self._step(batch, has_alpha, distill=True,
+                          depth_target=depth_target, bg=bg, noises=noises)
 
     @torch.no_grad()
     def render_image(self, pose, intrinsics, H: int, W: int, bg_color=1.0,
@@ -199,3 +244,142 @@ class Trainer:
         img = torch.cat(imgs)[:n][inv].reshape(H, W, 3)
         depth = torch.cat(depths)[:n][inv].reshape(H, W)
         return img.cpu().numpy(), depth.cpu().numpy()
+
+    @torch.no_grad()
+    def render_distill_frame(self, edit_grid, pose, intrinsics, H: int,
+                             W: int, grow_grid: bool = False, chunk=None,
+                             net=None):
+        """Full-frame distill-path render in raster order, in pieces of at
+        most chunk rays (eval_chunk by default; the last one shorter, no
+        padding), with the EMA network unless `net` is given. The skip
+        field (of the edit grid when grow_grid, else of the density grid)
+        and the gather table are built once per frame.
+        Returns numpy arrays [H*W, ...] (image, depth, depth_edit, weights,
+        weights_edit, x_term, nears) and the float min_near."""
+        net = self.ema_net if net is None else net
+        chunk = chunk or self.eval_chunk
+        egrid = torch.as_tensor(np.asarray(edit_grid), dtype=torch.uint8,
+                                device=self.device)
+        march_src = egrid if grow_grid else self.occ_state.occupancy
+        skip_flat = build_march_tables(march_src, render_cfg=self.render_cfg)
+        gather_table = gather_table_for(net)
+        rays_o, rays_d = pixel_rays(self._tensor(pose),
+                                    self._tensor(intrinsics), H, W)
+        n = H * W
+        keys = ("image", "depth", "depth_edit", "weights", "weights_edit",
+                "x_term", "nears")
+        outs = {k: [] for k in keys}
+        min_near = []
+        for s in range(0, n, chunk):
+            out = render_rays_distill(
+                net, self.occ_state.occupancy, egrid, rays_o[s:s + chunk],
+                rays_d[s:s + chunk], render_cfg=self.render_cfg,
+                grow_grid=grow_grid, skip_flat=skip_flat,
+                gather_table=gather_table)
+            for k in keys:
+                outs[k].append(out[k])
+            min_near.append(out["min_near"])
+        res = {k: torch.cat(v).cpu().numpy() for k, v in outs.items()}
+        res["min_near"] = float(torch.stack(min_near).min())
+        return res
+
+    def evaluate(self, dataset, max_views=None):
+        """PSNR and SSIM over a split's views (white background); LPIPS is
+        gated (train/metrics.py). Returns the mean PSNR."""
+        pm, sm, lm = psnr_meter(), ssim_meter(), LPIPSMeter()
+        n = len(dataset) if max_views is None else min(max_views,
+                                                       len(dataset))
+        for i in range(n):
+            img, _ = self.render_image(dataset.poses[i], dataset.intrinsics,
+                                       dataset.H, dataset.W)
+            gt = dataset.images[i]
+            if gt.shape[-1] == 4:
+                gt = gt[..., :3] * gt[..., 3:] + (1.0 - gt[..., 3:])
+            for m in (pm, sm, lm):
+                m.update(img, gt)
+        self.log(f"[eval] {pm.report()} | {sm.report()} | {lm.report()}")
+        self.stats["psnr"].append(pm.measure())
+        return pm.measure()
+
+    # -- checkpoints -------------------------------------------------------
+
+    def _ckpt_tree(self):
+        """The JAX package's checkpoint tree ({"state": TrainState, "occ":
+        OccupancyState}, optax Adam moments under opt_state) as numpy."""
+        from ..convert import params_to_numpy, tree_from_state_dict
+
+        states = {n: self.optimizer.state.get(p, {})
+                  for n, p in self.net.named_parameters()}
+        mom = {k: {n: st.get(k, torch.zeros_like(p))
+                   for (n, st), p in zip(states.items(),
+                                         self.net.parameters())}
+               for k in ("exp_avg", "exp_avg_sq")}
+        count = int(states["encoder"].get("step", 0))  # one for every leaf
+        adam = SimpleNamespace(count=np.int32(count),
+                               mu=tree_from_state_dict(mom["exp_avg"]),
+                               nu=tree_from_state_dict(mom["exp_avg_sq"]))
+        occ = self.occ_state
+        return {
+            "state": SimpleNamespace(
+                params=params_to_numpy(self.net),
+                opt_state=(adam, SimpleNamespace(count=np.int32(count))),
+                ema_params=params_to_numpy(self.ema_net),
+                step=np.int32(self.global_step)),
+            "occ": SimpleNamespace(
+                density_grid=occ.density_grid, occupancy=occ.occupancy,
+                mean_density=occ.mean_density,
+                iter_density=np.int32(occ.iter_density)),
+        }
+
+    def save_checkpoint(self, best_metric=None):
+        """Save the weights, EMA, Adam state and occupancy state under
+        <workspace>/checkpoints (rolling); with best_metric, also the best
+        one. Returns the path."""
+        if self.ckpt is None:
+            raise ValueError("save_checkpoint needs a Trainer workspace")
+        meta = {"global_step": self.global_step}
+        tree = self._ckpt_tree()
+        path = self.ckpt.save(self.global_step, tree, meta)
+        if best_metric is not None:
+            self.ckpt.save_best(best_metric, tree, meta)
+        return path
+
+    def load_checkpoint(self, mode="latest"):
+        """Load scratch / latest / best / <path>; a JAX Trainer's
+        checkpoint loads the same way. Returns False when there is none."""
+        from ..convert import params_from_jax
+
+        path = (self.ckpt.resolve(mode) if self.ckpt is not None else
+                (mode if os.path.exists(str(mode)) else None))
+        if path is None:
+            self.log(f"[ckpt] no checkpoint for mode={mode}, from scratch")
+            return False
+        tree, meta = load_pytree(path, self._ckpt_tree())
+        st = tree["state"]
+        self.net.load_state_dict(params_from_jax(st.params))
+        self.ema_net.load_state_dict(params_from_jax(st.ema_params))
+        adam = st.opt_state[0]
+        count = int(adam.count)
+        mu, nu = params_from_jax(adam.mu), params_from_jax(adam.nu)
+        for name, p in self.net.named_parameters():
+            self.optimizer.state.pop(p, None)
+            if count > 0:
+                self.optimizer.state[p] = {
+                    "step": torch.tensor(float(count)),
+                    "exp_avg": mu[name].to(self.device),
+                    "exp_avg_sq": nu[name].to(self.device)}
+        sched = self.scheduler
+        sched.last_epoch = int(st.opt_state[1].count)
+        for group, base, lam in zip(self.optimizer.param_groups,
+                                    sched.base_lrs, sched.lr_lambdas):
+            group["lr"] = base * lam(sched.last_epoch)
+        sched._last_lr = [g["lr"] for g in self.optimizer.param_groups]
+        occ = tree["occ"]
+        self.occ_state = OccupancyState(
+            density_grid=self._tensor(occ.density_grid),
+            occupancy=self._tensor(occ.occupancy, torch.uint8),
+            mean_density=self._tensor(occ.mean_density),
+            iter_density=int(occ.iter_density))
+        self.global_step = int(meta.get("global_step", int(st.step)))
+        self.log(f"[ckpt] loaded {path} at step {self.global_step}")
+        return True

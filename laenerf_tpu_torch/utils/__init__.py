@@ -1,0 +1,3 @@
+from .timers import PhaseTimer
+from .palette import palette_to_img, palette_change_to_img
+from .images import write_png

@@ -9,7 +9,8 @@ machine without JAX:
 Tolerance: the scatter-adds (K1, K5, K6) at relative 1e-5 of the max (f32
 atomics sum in another order on every run); the gathers and the construct
 probes (K7) exactly (they move values, count, or sum terms that add
-exactly).
+exactly); the distill render on the card against the CPU at 2e-3 absolute
+(bf16 network, as the port against JAX).
 """
 
 import numpy as np
@@ -161,6 +162,80 @@ def test_hashgrid_backward_on_card_matches_cpu(cuda):
         (hashgrid_encode(t, x.to(dev), spec) * cot.to(dev)).sum().backward()
         grads.append(t.grad.cpu())
     assert _rel_err(grads[0], grads[1]) < REL_TOL
+
+
+@pytest.mark.cuda
+def test_scatter_add_kernel_at_the_laenerf_backward_shape(cuda):
+    """K1 at the LAENeRF encoder backward's shape: [n, 16 levels x 8
+    corners] idx and C = 2 bf16 rows into the 6,119,864-row table of the
+    recolor path's 16-level C = 2 lg19 grid (the float2 RED path)."""
+    from laenerf_tpu_torch.editing import LAENeRFConfig
+    from laenerf_tpu_torch.ops.hashgrid import _octo_corners
+
+    spec = LAENeRFConfig().grid_spec
+    assert spec.table_rows == 6119864 and spec.level_dim == 2
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    n = 4096
+    idx, w = _octo_corners(spec, torch.rand((n, 3), generator=gen,
+                                            device=cuda))
+    grad = torch.randn((n, spec.num_levels, 2), generator=gen, device=cuda)
+    rows = (w[..., None] * grad[:, :, None, :]).to(torch.bfloat16)
+    idx, rows = idx.reshape(n, -1), rows.reshape(n, -1, 2)
+    assert idx.shape == (n, 128)
+    before = scatter_add_rows.launches
+    got = scatter_add_rows(idx, rows, spec.table_rows)
+    ref = scatter_add_rows_plain(idx, rows, spec.table_rows)
+    torch.cuda.synchronize()
+    assert scatter_add_rows.launches == before + 1
+    assert _rel_err(got, ref) < REL_TOL
+
+
+def _blob(H=32, seed=0):
+    rng = np.random.RandomState(seed)
+    occ = (rng.rand(1, H, H, H) > 0.8).astype(np.uint8)
+    occ[:, H // 4:3 * H // 4, H // 4:3 * H // 4, H // 3:2 * H // 3] = 1
+    return occ
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grow", [False, True])
+def test_render_rays_distill_on_card_matches_cpu(cuda, grow):
+    """The distill render on the card (its backward-free forward: the
+    march, the bf16 network and the compositing) against the port on the
+    CPU, at 2e-3 as the port against JAX."""
+    from laenerf_tpu_torch.models import NeRFConfig, RenderConfig, nerf_init
+    from laenerf_tpu_torch.models.renderer import render_rays_distill
+    from laenerf_tpu_torch.train.trainer import configure_matmul_precision
+
+    configure_matmul_precision()
+    cfg = NeRFConfig(num_levels=4, log2_hashmap_size=12)
+    rcfg = RenderConfig(grid_size=32, max_steps=128, march_iters=128,
+                        infer_chunk_events=8, density_scale=5.0)
+    net = nerf_init(cfg, device="cpu",
+                    generator=torch.Generator().manual_seed(4))
+    with torch.no_grad():
+        net.encoder.uniform_(-0.5, 0.5,
+                             generator=torch.Generator().manual_seed(5))
+    occ = _blob()
+    edit = np.zeros_like(occ)
+    edit[:, :16] = occ[:, :16]
+    rng = np.random.RandomState(6)
+    d = rng.uniform(-0.5, 0.5, (512, 3)) - np.array([0.2, -0.3, -2.5])
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    o = np.broadcast_to(np.array([0.2, -0.3, -2.5]), d.shape)
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        out = render_rays_distill(
+            net.to(dev), torch.tensor(occ, device=dev),
+            torch.tensor(edit, device=dev),
+            torch.tensor(o, dtype=torch.float32, device=dev),
+            torch.tensor(d, dtype=torch.float32, device=dev),
+            render_cfg=rcfg, grow_grid=grow)
+        outs.append({k: v.cpu() for k, v in out.items()})
+    assert float(outs[1]["weights_edit"].max()) > 0.5
+    for k in ("image", "depth", "weights", "weights_edit", "x_term"):
+        torch.testing.assert_close(outs[0][k], outs[1][k], atol=2e-3,
+                                   rtol=0, msg=k)
 
 
 GATHER_DTYPES = {"f32": torch.float32, "i32": torch.int32, "i8": torch.int8}
