@@ -86,6 +86,27 @@ Phases, one or more lines each, tagged with the seconds since the start
      index_add_, and K1's device time inside 4 more LAENeRF steps. Prints
      the phase seconds, ms per LAENeRF and fine-tune step and the bg-MSE
      outside the exported masks.
+  13. style: the style mode on the recolor phase's NeRF and region
+     (EditPipeline(mode="style") in run_all's order) at the recolor gate's
+     style width: VGG-19 to index 14, style layers 10/12/14, crop_size 256,
+     style_weight 130, 8 bases, style_lg 19; 300 LAENeRF steps, warm-up
+     100, pruning at 200, 64 fine-tune steps; then preserve_color's
+     LAENeRF phase on the same edit dataset. Checks that the Gram term ran
+     in every step past warm-up, the MSE falls, K1 launches in every
+     LAENeRF and fine-tune step, distillation changes pixels and the
+     renders are finite in [0, 1]; prints ms per LAENeRF step before and
+     after warm-up, ms per fine-tune step, the phase seconds and the Gram
+     loss on the card against the CPU; then K1 on a style step's input
+     against its plain version and index_add_.
+  14. npr: run_npr_pipeline at its defaults (VGG-16 to index 29,
+     feature_size 256, 4 bases, no direction encoding) from train view 0
+     with its green channel doubled; 200 LAENeRF and 64 fine-tune steps.
+     Checks style_enc.npz and timings.json, the falling NPR MSE, finite
+     fine-tune losses and K1 in every step; then K1 on the fine-tune
+     backward's input (held to REL_TOL of the largest sum of magnitudes
+     into one row: its gradients cancel).
+  15. lpips: Trainer.evaluate over 2 test views with LPIPS through a
+     synthetic VGG-16 npz, against the same LPIPS on the CPU.
 Then one JSON line with every kernel of the path, the nvidia-smi line, and
 the final {"ok": true, "device": ...} line.
 
@@ -93,6 +114,7 @@ Imports torch and the port only, never JAX.
 """
 
 import contextlib
+import dataclasses
 import json
 import math
 import re
@@ -395,11 +417,16 @@ def phase_k1(card, dev, model_cfg):
             "sites": inputs}
 
 
-def k1_site(card, dev, site, idx, rows, T, what):
+def k1_site(card, dev, site, idx, rows, T, what, cancels=False):
     """K1 on one input (idx, rows into T rows), within rel REL_TOL of its
     plain version, timed against it and against index_add_ (in turns, CUDA
     events) beside its bound, and under the profiler; with the RED count
-    that k1_reds models. Prints one line and returns the site's entry."""
+    that k1_reds models. Prints one line and returns the site's entry.
+
+    The error is relative to the largest |sum|, or with `cancels` to the
+    largest sum of |rows| into one table row: where a row's terms cancel
+    (a trained NeRF's gradients of both signs), the summation order's
+    error scales with the magnitudes summed, not with what is left."""
     from laenerf_tpu_torch.ops.scatter_add import (scatter_add_rows,
                                                    scatter_add_rows_plain)
 
@@ -407,8 +434,12 @@ def k1_site(card, dev, site, idx, rows, T, what):
     ref = scatter_add_rows_plain(idx, rows, T)
     torch.cuda.synchronize()
     err = rel_err(got, ref)
-    if not err < REL_TOL:
-        raise AssertionError(f"K1 {site}: rel err {err}")
+    mags = scatter_add_rows_plain(idx, rows.abs(), T)
+    err_sum = (got - ref).abs().max().item() / (mags.max().item() + 1e-12)
+    del mags
+    if not (err_sum if cancels else err) < REL_TOL:
+        raise AssertionError(f"K1 {site}: rel err {err} (to the largest "
+                             f"sum of magnitudes {err_sum})")
     C = rows.shape[-1]
     idx64, rows32 = idx.reshape(-1).long(), rows.reshape(-1, C).float()
 
@@ -436,7 +467,9 @@ def k1_site(card, dev, site, idx, rows, T, what):
     width = "float4" if C % 4 == 0 else ("float2" if C % 2 == 0 else
                                          "scalar")
     phase(what, f"K1 {site}: {idx.numel()} rows x C={C} as "
-                f"{list(idx.shape)} into {T} rows, rel err {err:.2e}, "
+                f"{list(idx.shape)} into {T} rows, rel err {err:.2e} "
+                f"({err_sum:.2e} of the largest sum of magnitudes; held to "
+                f"{REL_TOL} on the {'second' if cancels else 'first'}), "
                 f"{reds} {width} REDs as k1_reds models them (computed "
                 f"from the input, not measured; {idx.numel() * C} "
                 f"scalar elements); K1 {ms:.4f} ms vs plain "
@@ -1115,7 +1148,9 @@ def phase_train(card, dev, tmp):
     from laenerf_tpu_torch.train import Trainer
 
     t0 = time.perf_counter()
-    generate_synthetic_scene(tmp, n_train=16, n_val=1, n_test=4, H=100,
+    # two test views: the recolor, style and LPIPS phases render each
+    # several times (the train split is drawn first, so it is unchanged)
+    generate_synthetic_scene(tmp, n_train=16, n_val=1, n_test=2, H=100,
                              W=100, device=dev)
     ds = NeRFDataset(tmp, "train", num_rays=4096)
     phase("train", f"synthetic scene: {len(ds)} views {ds.H}x{ds.W} in "
@@ -1241,7 +1276,7 @@ def k1_launch_us(fn):
     return sum(k1) / len(k1) if k1 else None
 
 
-def k1_span_turns(tr, ds, spans=(1, 16, 32, 64), steps=4):
+def k1_span_turns(tr, ds, spans=(1, 16, 32, 64), steps=2):
     """K1's device time per launch inside train steps at each of `spans`
     (rows a lane walks down the backward's [samples, 64] idx), in turns:
     the spans in order, then reversed, `steps` profiled steps each."""
@@ -1266,17 +1301,21 @@ LAENERF_LOG_EVERY = 50  # LAENeRF steps between MSE read-backs
 
 
 @contextlib.contextmanager
-def k1_capture(table_rows):
-    """Keep a copy of the first K1 input the hash-grid backward passes for
-    a table of table_rows rows (the launch itself is the real one)."""
+def k1_capture(table_rows, nth=0):
+    """Keep a copy of the nth (from 0) K1 input the hash-grid backward
+    passes for a table of table_rows rows (the launch itself is the real
+    one)."""
     from laenerf_tpu_torch.ops import hashgrid
 
     real = hashgrid.scatter_add_rows
     seen = {}
+    calls = [0]
 
     def capture(idx, g, rows, **kw):
-        if rows == table_rows and not seen:
-            seen.update(idx=idx.clone(), rows=g.clone())
+        if rows == table_rows:
+            if calls[0] == nth:
+                seen.update(idx=idx.clone(), rows=g.clone())
+            calls[0] += 1
         return real(idx, g, rows, **kw)
 
     hashgrid.scatter_add_rows = capture
@@ -1349,6 +1388,26 @@ def clicked_region(card, tr, ds):
     return pts
 
 
+def seeded_region(tr, ds, what):
+    """The recolor gate's region (scripts/recolor_gate.py:88-97): 200
+    seeds just inside a sphere of the scene, here the centre one, grown on
+    the density grid, and its grow grid. Returns (edit, grow)."""
+    from laenerf_tpu_torch.editing import EditGrid
+
+    rc = tr.render_cfg
+    centre, radius = centre_sphere(ds)
+    u = np.random.RandomState(0).randn(200, 3)
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    edit, density, thresh = grown_region(
+        tr, (centre + 0.9 * radius * u).astype(np.float32))
+    grow = EditGrid(rc.cascades, rc.grid_size)
+    grow.grid_from_growing_queue(edit, density, thresh)
+    phase(what, f"region: 200 seeds inside the centre sphere, "
+                f"{int(edit.grid.sum())} cells grown (4000 pops, thresh "
+                f"{thresh:.4g}), grow grid {int(grow.grid.sum())} cells")
+    return edit, grow
+
+
 def phase_recolor(card, dev, tr, ds, tmp):
     """The recolor editing path on the trainer and scene phase_train left:
     a region seeded inside the scene's centre sphere and grown on the
@@ -1357,7 +1416,7 @@ def phase_recolor(card, dev, tr, ds, tmp):
     Returns K1's launches in the phase and K1's entry at the LAENeRF
     backward's shape."""
     from laenerf_tpu_torch.data import NeRFDataset
-    from laenerf_tpu_torch.editing import EditGrid, StyleLossWeights
+    from laenerf_tpu_torch.editing import StyleLossWeights
     from laenerf_tpu_torch.ops.scatter_add import scatter_add_rows
     from laenerf_tpu_torch.pipeline import EditPipeline, PipelineConfig
     from laenerf_tpu_torch.train import Trainer
@@ -1367,19 +1426,7 @@ def phase_recolor(card, dev, tr, ds, tmp):
     pre = [tr.render_image(p, test.intrinsics, test.H, test.W)[0]
            for p in test.poses]
     clicked_region(card, tr, ds)
-    # the gate's seeds (scripts/recolor_gate.py:88-97): 200 points just
-    # inside a sphere of the scene, here the centre one
-    centre, radius = centre_sphere(ds)
-    u = np.random.RandomState(0).randn(200, 3)
-    u /= np.linalg.norm(u, axis=1, keepdims=True)
-    edit, density, thresh = grown_region(
-        tr, (centre + 0.9 * radius * u).astype(np.float32))
-    grow = EditGrid(rc.cascades, rc.grid_size)
-    grow.grid_from_growing_queue(edit, density, thresh)
-    phase("recolor", f"region: 200 seeds inside the centre sphere, "
-                     f"{int(edit.grid.sum())} cells grown (4000 pops, "
-                     f"thresh {thresh:.4g}), grow grid "
-                     f"{int(grow.grid.sum())} cells")
+    edit, grow = seeded_region(tr, ds, "recolor")
 
     cfg = PipelineConfig(
         mode="recolor", num_palette_bases=8, style_lg=19, depth_diff=0.5,
@@ -1543,6 +1590,301 @@ def phase_recolor(card, dev, tr, ds, tmp):
     return recolor_launches, site
 
 
+# the style phase's step counts and the gate's style configuration
+# (scripts/recolor_gate.py:100-124, run_common.sh's -m style flags), steps
+# cut to fit the run (the gate runs 10,000 / 1,500 / 7,000 and warm-up
+# 1,000)
+STYLE_STEPS = {"train_steps_style": 300, "distill_palette_steps": 100,
+               "train_steps_distill": 64}
+STYLE_WARMUP = 100
+NPR_STEPS = {"train_steps_style": 200, "train_steps_distill": 64}
+MSE_WINDOW = 50  # steps averaged at each end of an MSE history
+
+
+def wave_png(path, size=256):
+    """The recolor gate's procedural wave style image, as a PNG."""
+    from PIL import Image
+
+    yy, xx = np.mgrid[0:size, 0:size] / float(size)
+    wave = 0.5 + 0.5 * np.sin(12 * xx + 5 * np.sin(6 * yy))
+    img = np.stack([wave, 0.4 + 0.5 * wave ** 2, 0.9 - 0.6 * wave], -1)
+    Image.fromarray((img * 255).astype(np.uint8)).save(path)
+    return img
+
+
+def phase_style(card, dev, tr, ds, tmp):
+    """The style mode on the trainer and scene the recolor phase left:
+    the recolor phase's seeded region, the gate's wave image, and
+    EditPipeline(mode="style") at the gate's style configuration (VGG-19 to
+    index 14, style layers 10/12/14, crop_size 256, style_weight 130, TV
+    1e-4 depth-guided, depth discontinuity 5e-4, smooth transition 1e-3,
+    8 bases, style_lg 19, depth_diff 0.5) with STYLE_STEPS; then
+    preserve_color's LAENeRF phase on the same edit dataset. Returns K1's
+    launches in the phase and K1's entry at a style step past warm-up."""
+    from laenerf_tpu_torch.data import NeRFDataset
+    from laenerf_tpu_torch.editing import StyleLossWeights, StyleNetwork
+    from laenerf_tpu_torch.ops.scatter_add import scatter_add_rows
+    from laenerf_tpu_torch.pipeline import EditPipeline, PipelineConfig
+
+    test = NeRFDataset(tmp, "test")
+    edit, grow = seeded_region(tr, ds, "style")
+    style_path = f"{tmp}/wave_style.png"
+    wave_png(style_path)
+    weights = StyleLossWeights(
+        offset_loss=5e-5, weight_loss_non_uniform=1e-7,
+        palette_loss_valid=1.0, smooth_trans_weight=1e-3, tv_weight=1e-4,
+        tv_depth_guide=True, depth_disc_weight=5e-4, style_weight=130.0,
+        warmup_iterations=STYLE_WARMUP)
+    cfg = PipelineConfig(
+        mode="style", num_palette_bases=8, style_lg=19, depth_diff=0.5,
+        style_image=style_path, style_layers=(10, 12, 14), crop_size=256,
+        weights=weights, **STYLE_STEPS)
+    ws = f"{tmp}/style_ws"
+    pipe = EditPipeline(tr, ds, cfg, ws, edit, grow)
+    images = ds.images.copy()
+    launches = {}
+
+    pipe.init_phase()
+    ed, st = pipe.edit_dataset, pipe.style_trainer
+    sn = st.style_network
+    phase("style", f"edit dataset: {len(ed)} views, padded to {ed.n_pad} "
+                   f"a view, crops {ed.crop_h}x{ed.crop_w} resized to "
+                   f"{cfg.crop_size}; VGG-19 pretrained: {sn.pretrained} "
+                   f"(random filters without a weights npz)")
+    spec = st.cfg.grid_spec
+    stamps = [time.perf_counter()]
+    before = scatter_add_rows.launches
+    # a step past warm-up: its Gram gradient reaches K1
+    steps = cfg.train_steps_style
+    with k1_capture(spec.table_rows,
+                    nth=(STYLE_WARMUP + steps) // 2) as captured:
+        pipe.train_laenerf_phase(
+            log_every=LAENERF_LOG_EVERY,
+            log_fn=lambda m: m.startswith("[laenerf] step")
+            and stamps.append(time.perf_counter()))
+    launches["laenerf"] = scatter_add_rows.launches - before
+    past = steps - STYLE_WARMUP - 1  # steps with step > warmup_iterations
+    if st.gram_steps != past:
+        raise AssertionError(f"the Gram term ran in {st.gram_steps} steps, "
+                             f"not the {past} past warm-up")
+    if launches["laenerf"] < steps:
+        raise AssertionError(f"K1 launched {launches['laenerf']} times in "
+                             f"{steps} LAENeRF steps")
+    mse = np.asarray(st.mse_history)
+    first, last = float(np.mean(mse[:MSE_WINDOW])), float(np.mean(mse[-MSE_WINDOW:]))
+    if not np.isfinite(mse).all() or not last < first:
+        raise AssertionError(f"style LAENeRF MSE: {first} -> {last}")
+    chunk_ms = np.diff(stamps) * 1e3 / LAENERF_LOG_EVERY
+    n_pre = STYLE_WARMUP // LAENERF_LOG_EVERY  # chunks before warm-up ends
+    pre_ms, post_ms = (float(np.median(chunk_ms[:n_pre])),
+                       float(np.median(chunk_ms[n_pre + 1:])))
+    phase("style", f"LAENeRF: {steps} steps, MSE {first:.5f} -> "
+                   f"{last:.5f} (first/last {MSE_WINDOW}), the Gram term in "
+                   f"{st.gram_steps} steps; {pre_ms:.2f} ms/step median "
+                   f"before warm-up, {post_ms:.2f} after (chunks of "
+                   f"{LAENERF_LOG_EVERY}: {np.round(chunk_ms, 2).tolist()}),"
+                   f" {int(st.active.sum())}/8 bases active, K1 "
+                   f"{launches['laenerf']} launches ({card})")
+
+    pipe.distill_phase(log_fn=lambda m: None)
+    changed = int(np.any(ds.images != images, axis=-1).sum())
+    if not changed:
+        raise AssertionError("style distillation changed no pixel")
+    before = scatter_add_rows.launches
+    losses = torch.stack(pipe.finetune_phase(log_fn=lambda m: None))
+    launches["finetune"] = scatter_add_rows.launches - before
+    if not bool(torch.isfinite(losses).all()):
+        raise AssertionError("non-finite style fine-tune loss")
+    if launches["finetune"] < cfg.train_steps_distill:
+        raise AssertionError(f"K1 launched {launches['finetune']} times in "
+                             f"{cfg.train_steps_distill} fine-tune steps")
+    ft_ms = 1e3 * pipe.timer["distill_nerf"] / cfg.train_steps_distill
+    results = pipe.eval_phase(log_fn=lambda m: None)
+    post = [tr.render_image(p, test.intrinsics, test.H, test.W)[0]
+            for p in test.poses[:2]]
+    for img in post:
+        lo, hi = float(np.nanmin(img)), float(np.nanmax(img))
+        if not np.isfinite(img).all() or lo < 0.0 or hi > 1.0 + 1e-5:
+            raise AssertionError(f"style render out of [0, 1]: [{lo}, {hi}]")
+    phase("style", f"distilled: {changed} pixels changed; fine-tune "
+                   f"{cfg.train_steps_distill} steps (depth-supervised), "
+                   f"loss {float(losses[0]):.5f} -> {float(losses[-1]):.5f}"
+                   f", {ft_ms:.1f} ms/step mean; train PSNR "
+                   f"{results['psnr_train']:.2f} dB, 2 test renders finite "
+                   f"in [0, 1] ({card})")
+    phase("style", "phase seconds (PhaseTimer): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in pipe.timer.summary().items())
+        + f" ({card})")
+
+    # preserve_color: the colour-matched Gram targets, the same edit dataset
+    pc = dataclasses.replace(cfg, preserve_color=True,
+                             load_edit_dataset=f"{ws}/edataset.npz")
+    pipe2 = EditPipeline(tr, ds, pc, f"{tmp}/style_pc_ws", edit, grow)
+    pipe2.init_phase()
+    st2 = pipe2.style_trainer
+    if st2.style_network.targets is not st2.style_network.gram_color:
+        raise AssertionError("preserve_color did not set colour targets")
+    pipe2.train_laenerf_phase(log_every=LAENERF_LOG_EVERY,
+                              log_fn=lambda m: None)
+    mse2 = np.asarray(st2.mse_history)
+    if st2.gram_steps != past or not np.isfinite(mse2).all() or \
+            not np.mean(mse2[-MSE_WINDOW:]) < np.mean(mse2[:MSE_WINDOW]):
+        raise AssertionError(f"preserve_color LAENeRF: {st2.gram_steps} "
+                             f"Gram steps, MSE {mse2[:MSE_WINDOW].mean()} -> "
+                             f"{mse2[-MSE_WINDOW:].mean()}")
+    phase("style", f"preserve_color: {steps} LAENeRF steps, MSE "
+                   f"{mse2[:MSE_WINDOW].mean():.5f} -> {mse2[-MSE_WINDOW:].mean():.5f}, the "
+                   f"Gram term in {st2.gram_steps} steps; train_style_enc "
+                   f"{pipe2.timer['train_style_enc']:.2f} s")
+    style_launches = scatter_add_rows.launches
+
+    # the Gram loss on the card and on the CPU (f32 both) on one crop
+    crop = torch.as_tensor(np.moveaxis(post[0], -1, 0))
+    sn_cpu = StyleNetwork(sn.image, style_layers=cfg.style_layers,
+                          size=cfg.crop_size, device="cpu")
+    a = float(sn(crop.to(dev)))
+    b = float(sn_cpu(crop))
+    rel = abs(a - b) / abs(b)
+    if not rel < 1e-3:
+        raise AssertionError(f"StyleNetwork loss card {a} vs CPU {b}")
+    phase("style", f"StyleNetwork loss on a {crop.shape[1]}x{crop.shape[2]}"
+                   f" render resized to {cfg.crop_size}: card {a:.6e}, CPU "
+                   f"{b:.6e}, rel err {rel:.2e} (f32, TF32 off)")
+
+    if "idx" not in captured:
+        raise AssertionError("no style LAENeRF backward reached K1")
+    site = k1_site(card, dev, "style_laenerf", captured["idx"],
+                   captured["rows"], spec.table_rows, "style")
+    return style_launches, site
+
+
+def reference_view(tmp, ds):
+    """The NPR reference: train view 0 with its green channel doubled, and
+    data_config.json naming it (tests/test_npr.py's recipe)."""
+    from PIL import Image
+
+    cfg_dir = f"{tmp}/npr_ref"
+    Path(cfg_dir).mkdir(exist_ok=True)
+    ref = ds.images[0].copy()
+    ref[..., 1] = np.clip(ref[..., 1] * 2.0, 0, 1)
+    mode = "RGBA" if ref.shape[-1] == 4 else "RGB"
+    Image.fromarray((ref * 255).astype(np.uint8), mode).save(
+        f"{cfg_dir}/ref.png")
+    Path(f"{cfg_dir}/data_config.json").write_text(
+        json.dumps({"tmpl_idx_train": 0}))
+    return cfg_dir
+
+
+def phase_npr(card, dev, tr, ds, tmp):
+    """run_npr_pipeline at its defaults (VGG-16 to index 29, feature_size
+    256, cos 2.5, mse 6, colour patch 30, 4 bases, no direction encoding)
+    with NPR_STEPS, on the trainer the style phase left. Returns K1's
+    launches in the phase and K1's entry at the NPR fine-tune's backward."""
+    from laenerf_tpu_torch.editing import StyleLossWeights
+    from laenerf_tpu_torch.ops.scatter_add import scatter_add_rows
+    from laenerf_tpu_torch.pipeline import run_npr_pipeline
+
+    cfg_dir = reference_view(tmp, ds)
+    weights = StyleLossWeights(offset_loss=1e-4, weight_loss_uniform=1e-6,
+                               weight_loss_non_uniform=1e-6,
+                               palette_loss_valid=1e-4, tv_weight=1e-5,
+                               tv_depth_guide=True, warmup_iterations=0)
+    ws = f"{tmp}/npr_ws"
+    table = tr.model_cfg.grid_spec.table_rows
+    with k1_capture(table) as captured:
+        npr_tr = run_npr_pipeline(tr, ds, cfg_dir, ws, weights,
+                                  log_fn=lambda m: None, **NPR_STEPS)
+    launches = scatter_add_rows.launches
+    steps, ft = NPR_STEPS["train_steps_style"], NPR_STEPS[
+        "train_steps_distill"]
+    for f in ("style_enc.npz", "timings.json"):
+        if not Path(ws, f).exists():
+            raise AssertionError(f"run_npr_pipeline wrote no {f}")
+    timings = json.loads(Path(ws, "timings.json").read_text())
+    nd = npr_tr.ds
+    mse = np.asarray(npr_tr.mse_history)
+    first, last = float(np.mean(mse[:MSE_WINDOW])), float(np.mean(mse[-MSE_WINDOW:]))
+    if not np.isfinite(mse).all() or not last < first:
+        raise AssertionError(f"NPR MSE: {first} -> {last}")
+    losses = torch.stack(npr_tr.finetune_losses)
+    if not bool(torch.isfinite(losses).all()):
+        raise AssertionError("non-finite NPR fine-tune loss")
+    if launches < steps + ft:
+        raise AssertionError(f"K1 launched {launches} times in {steps} NPR "
+                             f"LAENeRF and {ft} fine-tune steps")
+    reg = [float((v["target_weights"][:v["n_valid"]] > 0).mean())
+           for v in nd.views]
+    phase("npr", f"registration: {len(nd)} views padded to {nd.n_pad}, "
+                 f"crops {nd.crop_h}x{nd.crop_w} resized to "
+                 f"{nd.feature_size}, registered share of rays by view "
+                 f"{np.round(reg, 3).tolist()}; VGG-16 pretrained: "
+                 f"{npr_tr.sem.pretrained}")
+    phase("npr", f"LAENeRF: {steps} steps, MSE {first:.5f} -> {last:.5f} "
+                 f"(first/last {MSE_WINDOW}), "
+                 f"{1e3 * timings['train_style_enc'] / steps:.2f} ms/step "
+                 f"mean; fine-tune {ft} steps, loss "
+                 f"{float(losses[0]):.5f} -> {float(losses[-1]):.5f}, "
+                 f"{1e3 * timings['distill_nerf'] / ft:.1f} ms/step mean; "
+                 f"K1 {launches} launches ({card})")
+    phase("npr", "phase seconds (PhaseTimer): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in timings.items()) + f" ({card})")
+    if "idx" not in captured:
+        raise AssertionError("no NPR fine-tune backward reached K1")
+    site = k1_site(card, dev, "npr_finetune", captured["idx"],
+                   captured["rows"], table, "npr", cancels=True)
+    return launches, site
+
+
+def phase_lpips(card, tr, tmp, views=2):
+    """Trainer.evaluate once with LPIPS on, through a synthetic VGG-16 npz
+    (random weights in torchvision's layout, tests/test_vgg_weights.py's
+    recipe: the number is no perceptual measure), against the same LPIPS on
+    the CPU."""
+    import os
+
+    from laenerf_tpu_torch.data import NeRFDataset
+    from laenerf_tpu_torch.editing import VGG16_LAYOUT
+    from laenerf_tpu_torch.editing.vgg import _layer_indices, lpips_fn
+
+    rng = np.random.RandomState(0)
+    arrays, cin = {}, 3
+    for i, (kind, cout) in enumerate(_layer_indices(VGG16_LAYOUT)):
+        if kind == "conv":
+            arrays[f"{i}.weight"] = (rng.randn(cout, cin, 3, 3)
+                                     * 0.05).astype(np.float32)
+            arrays[f"{i}.bias"] = (rng.randn(cout) * 0.01).astype(
+                np.float32)
+            cin = cout
+    path = f"{tmp}/vgg16_features.npz"
+    np.savez(path, **arrays)
+    os.environ["LAENERF_VGG16_NPZ"] = path
+    try:
+        test = NeRFDataset(tmp, "test")
+        tr.evaluate(test, max_views=views)  # its first: builds the meter
+        if not tr.stats["lpips"]:
+            raise AssertionError("evaluate recorded no LPIPS")
+        card_lpips = tr.stats["lpips"][-1]
+        cpu_fn = lpips_fn(device="cpu")
+        vals = []
+        for i in range(views):
+            img, _ = tr.render_image(test.poses[i], test.intrinsics, test.H,
+                                     test.W)
+            gt = test.images[i]
+            gt = gt[..., :3] * gt[..., 3:] + (1.0 - gt[..., 3:])
+            vals.append(float(cpu_fn(torch.as_tensor(img),
+                                     torch.as_tensor(gt, dtype=torch.float32))))
+    finally:
+        del os.environ["LAENERF_VGG16_NPZ"]
+    cpu_lpips = float(np.mean(vals))
+    if not math.isfinite(card_lpips) or \
+            not abs(card_lpips - cpu_lpips) <= 1e-3 * abs(cpu_lpips):
+        raise AssertionError(f"LPIPS card {card_lpips} vs CPU {cpu_lpips}")
+    phase("lpips", f"Trainer.evaluate over {views} test views with LPIPS "
+                   f"(synthetic weights): {card_lpips:.6f} on the card, "
+                   f"{cpu_lpips:.6f} on the CPU, difference "
+                   f"{abs(card_lpips - cpu_lpips):.2e} ({card})")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on a GPU",
@@ -1615,6 +1957,14 @@ def main():
         launches += recolor_launches
         phase("recolor", f"K1 launches on the main path, train and recolor: "
                          f"{launches}")
+        scatter_add_rows.launches = 0
+        style_launches, style_site = phase_style(card, dev, tr, ds, tmp)
+        scatter_add_rows.launches = 0
+        npr_launches, npr_site = phase_npr(card, dev, tr, ds, tmp)
+        launches += style_launches + npr_launches
+        phase("npr", f"K1 launches on the main path, train, recolor, style "
+                     f"and NPR: {launches}")
+        phase_lpips(card, tr, tmp)
 
     gather_src = "laenerf_tpu_torch/csrc/gather_probes.cu"
     scatter_src = "laenerf_tpu_torch/csrc/sorted_scatter.cu"
@@ -1634,7 +1984,7 @@ def main():
         "library_device_ms": k1["library_device_ms"],
         "train_step_device_ms": (None if k1_train_us is None
                                  else k1_train_us / 1e3),
-        "sites": k1["sites"] + [laenerf_site],
+        "sites": k1["sites"] + [laenerf_site, style_site, npr_site],
     }] + [kernel_entry(name, gather_src, gather_results, gather_launches)
           for name in ("take_rows", "take_lanes", "grid_probe")]
         + [kernel_entry(name, scatter_src, scatter_results, scatter_launches)

@@ -8,11 +8,15 @@ Same layout as the JAX package:
   models/  — NeRF network, occupancy grid, volume renderer (train,
              inference and distill paths)
   data/    — rays, blender-format dataset, procedural synthetic scenes
-  train/   — optimizer, train step, Trainer, metrics, checkpoints
+  train/   — optimizer, train steps (NeRF, distill fine-tune, NPR
+             fine-tune), Trainer, metrics (PSNR, SSIM, LPIPS), checkpoints
   editing/ — edit grid, LAENeRF and its trainer, edit dataset,
-             distillation (the recolor mode)
-  pipeline/ — the headless recolor pipeline (EditPipeline.run_all)
-  utils/   — phase timers, palette images, PNG writing
+             distillation (recolor); VGG-19/16 stacks, the Gram style
+             network (style); the semantic encoder, the registration
+             dataset and the NPR trainer (NPR)
+  pipeline/ — the headless pipelines (EditPipeline.run_all for recolor
+             and style, run_npr_pipeline)
+  utils/   — phase timers, palette images, PNG writing, bilinear resize
   csrc/    — CUDA C++ sources of the hand-written kernels
   perf/    — H100 microbenchmark entry points (python -m ...perf.<name>)
 

@@ -5,7 +5,8 @@ The JAX NeRF tree (as numpy arrays) is {"encoder": [T, C], "sigma_net":
 [W...], "color_net": [W...]}; the LAENeRF tree is {"encoder": [T, C],
 "weight_net": [W...], "offset_net": [W...], "palette": [K, 3]}. The JAX
 package stores MLP weights [in, out]; nn.Linear stores [out, in], so the
-weights are transposed both ways.
+weights are transposed both ways. Its VGG stacks are lists of (w [kh, kw,
+cin, cout], b) or None; the port's hold w as [cout, cin, kh, kw].
 """
 
 import re
@@ -64,6 +65,25 @@ def laenerf_params_to_numpy(model):
     return tree_from_state_dict(model.state_dict())
 
 
+def vgg_params_from_jax(params, device="cpu"):
+    """JAX VGG params (a list of (w HWIO, b) or None) -> the port's stack
+    (w OIHW, b) float32 tensors on device."""
+    return [None if p is None else (
+        torch.tensor(np.ascontiguousarray(
+            np.transpose(np.asarray(p[0], np.float32), (3, 2, 0, 1))),
+            device=device),
+        torch.tensor(np.asarray(p[1], np.float32), device=device))
+        for p in params]
+
+
+def vgg_params_to_numpy(params):
+    """The port's VGG stack -> the JAX layout (w HWIO, b) numpy list."""
+    return [None if p is None else (
+        np.ascontiguousarray(np.transpose(p[0].detach().cpu().numpy(),
+                                          (2, 3, 1, 0))),
+        p[1].detach().cpu().numpy()) for p in params]
+
+
 def _subtree(data, prefix):
     """The {"encoder": ..., "<net>": [...], ...} tree stored under the
     keystr prefix (e.g. "['state'].params")."""
@@ -87,10 +107,16 @@ def load_jax_checkpoint(path):
 
     Returns {"params": NeRFNetwork state dict, "ema_params": state dict,
     "occ": {"density_grid", "occupancy", "mean_density", "iter_density"}
-    numpy arrays, "step": int}.
+    numpy arrays, "step": int}. A trained LAENeRF's style_enc.npz (the
+    recolor, style and NPR pipelines') reads as {"params": LAENeRF state
+    dict, "active": [K] bool numpy}.
     """
     with np.load(path, allow_pickle=False) as z:
         data = {k: z[k] for k in z.files}
+    if "['active']" in data:
+        return {"params": laenerf_params_from_jax(_subtree(data,
+                                                           "['params']")),
+                "active": data["['active']"].astype(bool)}
     occ = {k: data[f"['occ'].{k}"] for k in (
         "density_grid", "occupancy", "mean_density", "iter_density")}
     return {

@@ -4,13 +4,11 @@ laenerf_tpu/editing/style_trainer.py).
 Per step, one view's padded rays go through LAENeRF; the loss is the masked
 MSE against the frozen NeRF's colors plus the weight, offset and palette
 regularizers, and after warmup_iterations the crop losses on the predicted
-colors scattered into the view's crop window: (depth-guided) TV, smooth
-transition and depth discontinuity. Adam(1e-3) with the palette at 2x lr,
-as two parameter groups. Palette pruning runs at (train_steps_style -
+colors scattered into the view's crop window: the VGG-19 Gram style loss
+(the crop resized to crop_size), (depth-guided) TV, smooth transition and
+depth discontinuity. Adam(1e-3) with the palette at 2x lr, as two
+parameter groups. Palette pruning runs at (train_steps_style -
 distill_palette_steps), driven by pipeline/driver.py.
-
-The Gram / VGG style term of the style mode is not ported: a step with
-style_weight > 0 raises NotImplementedError.
 """
 
 import dataclasses
@@ -18,6 +16,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..utils.images import resize_bilinear
 from .laenerf import (LAENeRFConfig, LAENeRFLosses, laenerf_forward_train,
                       laenerf_init, prune_palette)
 
@@ -48,18 +47,32 @@ def make_style_optimizer(model, lr: float = 1e-3):
                             betas=(0.9, 0.999), eps=1e-8)
 
 
-def _crop_losses(colors, vm, batch, weights: StyleLossWeights, H, W,
-                 crop_h, crop_w, crop_origin):
-    """The crop-loss block: predictions scattered into the full image (the
-    padded rows into a spare row H*W), then the crop window."""
+def scatter_crop(colors, vm, inds, H, W, crop_h, crop_w, crop_origin):
+    """Predictions scattered into the full image (the padded rows into a
+    spare row H*W). Returns (full [H, W, 3], the crop window
+    [crop_h, crop_w, 3])."""
     flat = torch.zeros((H * W + 1, 3), dtype=torch.float32,
                        device=colors.device)
-    flat = flat.index_put((batch["inds"].long(),),
+    flat = flat.index_put((inds.long(),),
                           torch.where(vm, colors.float(), 0.0))
+    full = flat[:H * W].reshape(H, W, 3)
     cx, cy = int(crop_origin[0]), int(crop_origin[1])
-    img = flat[:H * W].reshape(H, W, 3)[cx:cx + crop_h, cy:cy + crop_w]
+    return full, full[cx:cx + crop_h, cy:cy + crop_w]
+
+
+def _crop_losses(colors, vm, batch, weights: StyleLossWeights, H, W,
+                 crop_h, crop_w, crop_origin, style_network=None,
+                 gram_targets=None, crop_size: int = 256):
+    """The crop-loss block on the crop window of the scattered
+    predictions; the Gram term runs when a style network is given."""
+    _, img = scatter_crop(colors, vm, batch["inds"], H, W, crop_h, crop_w,
+                          crop_origin)
     img_chw = torch.movedim(img, -1, 0)
     loss = 0.0
+    if style_network is not None and weights.style_weight > 0:
+        x = resize_bilinear(img_chw, (crop_size, crop_size))
+        loss = loss + weights.style_weight * style_network.gram_loss(
+            x, gram_targets)
     if weights.tv_weight > 0:
         if weights.tv_depth_guide:
             tv = LAENeRFLosses.tv_depth_weighted(
@@ -83,7 +96,8 @@ def _crop_losses(colors, vm, batch, weights: StyleLossWeights, H, W,
 def laenerf_train_step(model, optimizer, active, batch, *,
                        weights: StyleLossWeights, H: int, W: int,
                        crop_h: int, crop_w: int, past_warmup: bool,
-                       crop_origin=None):
+                       crop_origin=None, style_network=None,
+                       gram_targets=None, crop_size: int = 256):
     """One LAENeRF optimization step on one view's padded batch.
 
     Args:
@@ -91,13 +105,11 @@ def laenerf_train_step(model, optimizer, active, batch, *,
         already jittered by the caller).
       crop_origin: (row, col) of the crop window; batch["crop_origin"]
         when not given.
+      style_network, gram_targets: the Gram term's StyleNetwork and targets
+        (style_weight > 0 and past warm-up); the crop is resized to
+        crop_size for it.
     Returns aux {"loss", "mse"} (0-d tensors); the model is updated.
     """
-    if weights.style_weight > 0:
-        raise NotImplementedError(
-            "the Gram / VGG style loss comes with the style-mode slice of "
-            "the port (editing/vgg.py, editing/style.py); recolor runs "
-            "with style_weight = 0")
     valid = batch["valid"]
     n_valid = torch.clamp(torch.sum(valid), min=1)
     optimizer.zero_grad(set_to_none=True)
@@ -115,12 +127,13 @@ def laenerf_train_step(model, optimizer, active, batch, *,
     if weights.intensity_weight > 0:
         loss = loss + weights.intensity_weight * LAENeRFLosses.intensity(
             batch["targets"] * vm, colors * vm)
-    if past_warmup and (weights.tv_weight > 0
+    if past_warmup and (weights.style_weight > 0 or weights.tv_weight > 0
                         or weights.smooth_trans_weight > 0
                         or weights.depth_disc_weight > 0):
         origin = batch["crop_origin"] if crop_origin is None else crop_origin
         loss = loss + _crop_losses(colors, vm, batch, weights, H, W, crop_h,
-                                   crop_w, origin)
+                                   crop_w, origin, style_network,
+                                   gram_targets, crop_size)
     loss.backward()
     optimizer.step()
     return {"loss": loss.detach(), "mse": mse.detach()}
@@ -130,15 +143,20 @@ class LAENeRFTrainer:
     """Drives the LAENeRF training phase over an EditDataset.
 
     Randomness (initial weights, depth re-jitter, pruning views) comes from
-    one torch.Generator on `device`, seeded by `seed`.
+    one torch.Generator on `device`, seeded by `seed`. With a style_network
+    (and style_weight > 0) the steps past warm-up add the Gram term at
+    crop_size; gram_steps counts them.
     """
 
     def __init__(self, cfg: LAENeRFConfig, weights: StyleLossWeights,
-                 edit_dataset, *, device="cuda", lr: float = 1e-3,
-                 seed: int = 0):
+                 edit_dataset, *, style_network=None, crop_size: int = 256,
+                 device="cuda", lr: float = 1e-3, seed: int = 0):
         self.cfg = cfg
         self.weights = weights
         self.ds = edit_dataset
+        self.style_network = style_network
+        self.crop_size = crop_size
+        self.gram_steps = 0
         self.device = torch.device(device)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.model, self.active = laenerf_init(cfg, device=self.device,
@@ -179,12 +197,19 @@ class LAENeRFTrainer:
                                 generator=self.generator, device=self.device)
                      - 0.5) * depth_factor
                 jb["x_term"] = base["x_term"] + d[:, None] * base["dirs"]
+            past_warmup = self.step > self.weights.warmup_iterations
+            sn = self.style_network
             aux = laenerf_train_step(
                 self.model, self.optimizer, self.active, jb,
                 weights=self.weights, H=self.ds.H, W=self.ds.W,
                 crop_h=self.ds.crop_h, crop_w=self.ds.crop_w,
-                past_warmup=self.step > self.weights.warmup_iterations,
-                crop_origin=origin)
+                past_warmup=past_warmup, crop_origin=origin,
+                style_network=sn,
+                gram_targets=None if sn is None else sn.targets,
+                crop_size=self.crop_size)
+            if past_warmup and sn is not None and \
+                    self.weights.style_weight > 0:
+                self.gram_steps += 1
             self.step += 1
             mses.append(aux["mse"])
         if not mses:

@@ -1,1 +1,2 @@
-from .driver import EditPipeline, PipelineConfig, project_points
+from .driver import (EditPipeline, PipelineConfig, project_points,
+                     run_npr_pipeline)

@@ -1,16 +1,23 @@
-"""Headless recolor pipeline driver (counterpart of
-laenerf_tpu/pipeline/driver.py, recolor mode).
+"""Headless recolor / style / NPR pipeline driver (counterpart of
+laenerf_tpu/pipeline/driver.py).
 
-On a trained NeRF and a selected region, the phases run in order:
-init (the edit dataset), LAENeRF training with palette pruning,
+Recolor and style (EditPipeline): on a trained NeRF and a selected region,
+the phases run in order: init (the edit dataset; with style_weight > 0
+the style image and its VGG-19 StyleNetwork), LAENeRF training with
+palette pruning (the Gram loss past warm-up in the style mode),
 distillation into the train images with the user's palette, the NeRF
-fine-tune on the distilled images, and evaluation. Each writes the JAX
-package's artifacts: hparams.json, opt.json, edit_grid.npz, grow_grid.npz,
-style_enc.npz, palet_og.npz, palet_mod.npz, palette_eval.json,
-timings.json, results_psnr_train.json, and render_*/ and masks/*/ PNGs.
+fine-tune on the distilled images (depth-supervised in the style mode),
+and evaluation. Each writes the JAX package's artifacts: hparams.json,
+opt.json, edit_grid.npz, grow_grid.npz, style_image.png, style_enc.npz,
+palet_og.npz, palet_mod.npz, palette_eval.json, timings.json,
+results_psnr_train.json, and render_*/ and masks/*/ PNGs.
 
-The style mode (a style image, VGG Gram losses, LPIPS), NPR and the video
-writer are not ported yet: asking for them raises NotImplementedError.
+NPR (run_npr_pipeline): from one stylized reference view, the
+registration dataset, LAENeRF training on its targets, the baked
+supervision images and the NeRF fine-tune (train_one_batch_npr).
+
+The video writer is not ported yet: asking for it raises
+NotImplementedError.
 """
 
 import dataclasses
@@ -20,6 +27,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+from PIL import Image
 
 from ..convert import laenerf_params_from_jax, laenerf_params_to_numpy
 from ..data.rays import get_rays
@@ -27,6 +35,7 @@ from ..editing.distill import distill_dataset
 from ..editing.edit_dataset import EditDataset
 from ..editing.editgrid import EditGrid
 from ..editing.laenerf import LAENeRFConfig
+from ..editing.style import StyleNetwork
 from ..editing.style_trainer import LAENeRFTrainer, StyleLossWeights
 from ..models.renderer import render_rays_distill
 from ..train.checkpoints import load_pytree, save_pytree
@@ -38,7 +47,7 @@ from ..utils.timers import PhaseTimer
 class PipelineConfig:
     """Editing-pipeline settings (the JAX package's fields)."""
 
-    mode: str = "recolor"  # recolor (style waits for its slice)
+    mode: str = "recolor"  # recolor | style
     train_steps_style: int = 3000
     train_steps_distill: int = 3000
     distill_palette_steps: int = 1500
@@ -82,16 +91,12 @@ def project_points(trainer, pose, intrinsics, pixels_xy, H, W):
 
 
 class EditPipeline:
-    """Runs the recolor workflow's phases on a trained NeRF (the port's
-    Trainer), on the trainer's device."""
+    """Runs the recolor or style workflow's phases on a trained NeRF (the
+    port's Trainer), on the trainer's device."""
 
     def __init__(self, trainer, dataset, cfg: PipelineConfig, workspace: str,
                  edit_grid: EditGrid, grow_grid: Optional[EditGrid] = None,
                  seed: int = 0):
-        if cfg.mode != "recolor" or cfg.weights.style_weight > 0:
-            raise NotImplementedError(
-                "the style mode comes with a later slice of the port; the "
-                "pipeline runs mode='recolor' with style_weight = 0")
         self.trainer = trainer
         self.dataset = dataset
         self.cfg = cfg
@@ -129,8 +134,12 @@ class EditPipeline:
             self.edit_dataset.save(self._path("edataset.npz"))
         self.timer.stop("edit_dataset")
 
+        style_network = None
+        if cfg.weights.style_weight > 0:
+            style_network = self._style_network()
         self.style_trainer = LAENeRFTrainer(
             self.laenerf_cfg, cfg.weights, self.edit_dataset,
+            style_network=style_network, crop_size=cfg.crop_size,
             device=self.trainer.device, seed=self.seed)
         if cfg.style_enc_path and os.path.exists(cfg.style_enc_path):
             self._reload_style_enc()
@@ -161,12 +170,34 @@ class EditPipeline:
                     "train_steps_distill": cfg.train_steps_distill,
                     "preserve_color": cfg.preserve_color,
                     "warmup_iterations": w.warmup_iterations,
-                    "vgg_pretrained": None,
+                    # False: random VGG filters (no local weights npz)
+                    "vgg_pretrained": None if style_network is None
+                    else bool(style_network.pretrained),
                 },
             }, f, indent=2)
         with open(self._path("opt.json"), "w") as f:
             json.dump({k: str(v) for k, v in dataclasses.asdict(cfg).items()},
                       f, indent=2)
+
+    def _style_network(self):
+        """The style image (RGB, any alpha dropped), written to
+        style_image.png, and its StyleNetwork; under preserve_color the
+        Gram targets are colour-matched to the first edit view's GT
+        colours."""
+        cfg = self.cfg
+        with Image.open(cfg.style_image) as im:
+            img = np.asarray(im.convert("RGB"), np.float32) / 255.0
+        write_png(self._path("style_image.png"),
+                  (img * 255).astype(np.uint8))
+        sn = StyleNetwork(np.moveaxis(img, -1, 0),
+                          style_layers=cfg.style_layers, size=cfg.crop_size,
+                          preserve_color=cfg.preserve_color,
+                          device=self.trainer.device)
+        if cfg.preserve_color:
+            target = self.edit_dataset.get_batch(0, jitter=False)
+            n = int(target["n_valid"])
+            sn.set_color_target(target["targets"][:n].T[:, :, None])
+        return sn
 
     def _reload_style_enc(self):
         """Load a trained LAENeRF (style_enc.npz of either package) and,
@@ -334,3 +365,80 @@ class EditPipeline:
         self.finetune_phase(log_fn=log_fn)
         return self.eval_phase(val_dataset, test_dataset, video_dataset,
                                log_fn=log_fn)
+
+
+def run_npr_pipeline(trainer, dataset, ref_npr_config: str, workspace: str,
+                     weights: StyleLossWeights, train_steps_style: int = 3000,
+                     train_steps_distill: int = 3000,
+                     num_palette_bases: int = 4, reg_max_dist: float = 2e-2,
+                     tv_min_dist: float = 10e-2, min_tv_factor: float = 0.1,
+                     cos_loss_factor: float = 2.5, mse_loss: float = 6.0,
+                     color_patch_loss: float = 30.0, feature_size: int = 256,
+                     num_rays: int = 4096, log_fn=print, seed: int = 0):
+    """Single-view reference NPR stylization on the trainer's device:
+    register the stylized reference view (ref_npr_config: its directory),
+    train an LAENeRF without direction encoding on the NPR targets, bake
+    the supervision images and fine-tune the NeRF with train_step_npr.
+    Writes style_enc.npz (+ .json), styleenc_train_dataset/,
+    nerf_retrain_dataset/ and timings.json under workspace, and a
+    checkpoint when the trainer has a workspace.
+
+    Returns the NPRTrainer; its finetune_losses holds the fine-tune steps'
+    losses (0-d tensors, not read back)."""
+    from ..editing.npr_dataset import SingleViewEditDataset
+    from ..editing.npr_trainer import NPRTrainer, build_npr_nerf_dataset
+    from ..editing.semantic import SemanticEncoder
+
+    os.makedirs(workspace, exist_ok=True)
+    timer = PhaseTimer()
+    sem = SemanticEncoder(device=trainer.device)
+    timer.start("edit_dataset")
+    npr_ds = SingleViewEditDataset(
+        trainer, dataset, ref_npr_config, sem, min_dist=reg_max_dist,
+        max_dist=tv_min_dist, min_tv_factor=min_tv_factor,
+        feature_size=feature_size,
+        out_dir=os.path.join(workspace, "styleenc_train_dataset"), seed=seed)
+    timer.stop("edit_dataset")
+
+    # the NPR LAENeRF has no direction encoding
+    lcfg = LAENeRFConfig(bound=trainer.model_cfg.bound,
+                         num_palette_bases=num_palette_bases, dir_degree=0)
+    npr_tr = NPRTrainer(lcfg, weights, npr_ds, sem, device=trainer.device,
+                        mse_loss_w=mse_loss, cos_loss_w=cos_loss_factor,
+                        color_patch_w=color_patch_loss, seed=seed)
+    timer.start("train_style_enc")
+    done = 0
+    while done < train_steps_style:
+        chunk = min(500, train_steps_style - done)
+        mse = npr_tr.train_steps(chunk)
+        done += chunk
+        log_fn(f"[npr] step {done}/{train_steps_style} mse={mse:.5f}")
+    timer.stop("train_style_enc")
+    save_pytree(os.path.join(workspace, "style_enc.npz"),
+                {"params": laenerf_params_to_numpy(npr_tr.model),
+                 "active": npr_tr.active},
+                meta={"paired_gather": False,
+                      "octo_gather": lcfg.octo_gather,
+                      "gather_dtype": lcfg.gather_dtype})
+
+    timer.start("distill_dataset")
+    npr_views = build_npr_nerf_dataset(
+        npr_ds, npr_tr.model, npr_tr.active, dataset,
+        out_dir=os.path.join(workspace, "nerf_retrain_dataset"))
+    timer.stop("distill_dataset")
+
+    timer.start("distill_nerf")
+    rng = np.random.RandomState(seed)
+    npr_tr.finetune_losses = []
+    for step in range(train_steps_distill):
+        view = npr_views[rng.randint(len(npr_views))]
+        aux = trainer.train_one_batch_npr(dataset, view, num_rays=num_rays)
+        npr_tr.finetune_losses.append(aux["loss"])
+        if (step + 1) % 500 == 0:
+            log_fn(f"[npr finetune] {step + 1}/{train_steps_distill} "
+                   f"loss={float(aux['loss']):.5f}")
+    timer.stop("distill_nerf")
+    if trainer.ckpt is not None:
+        trainer.save_checkpoint()
+    timer.save(os.path.join(workspace, "timings.json"))
+    return npr_tr

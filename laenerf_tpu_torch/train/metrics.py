@@ -1,9 +1,9 @@
-"""Quality metrics: PSNR and SSIM (counterpart of
-laenerf_tpu/train/metrics.py), and the LPIPS meter's gate.
+"""Quality metrics: PSNR, SSIM and LPIPS (counterpart of
+laenerf_tpu/train/metrics.py).
 
 The functions take tensors on any device; the meters take numpy images or
-tensors and compute on the CPU in f32 (evaluation renders come back as
-numpy arrays).
+tensors. PSNR and SSIM compute on the CPU in f32 (evaluation renders come
+back as numpy arrays); LPIPS runs its VGG-16 on the meter's device.
 """
 
 import numpy as np
@@ -84,28 +84,42 @@ def ssim_meter():
 
 
 class LPIPSMeter:
-    """LPIPS, gated as in the JAX package: it reports `available = False`
-    and records nothing. LPIPS needs the VGG16 network of the style mode
-    (editing/vgg.py), which is ported with that mode; until then no
-    evaluation reports it."""
+    """LPIPS through the VGG-16 port (editing/vgg.py::lpips_fn), computed
+    on `device`; `available` only with local VGG-16 weights, and without
+    them it records nothing and reports n/a."""
 
     name = "LPIPS"
 
-    def __init__(self):
+    def __init__(self, device="cuda"):
+        # imported here: editing.vgg imports train.trainer, which imports
+        # this module
+        from ..editing.vgg import lpips_fn
+
+        self.device = torch.device(device)
         self.vals = []
+        try:
+            self._fn = lpips_fn(device=self.device)
+        except RuntimeError:  # no local VGG-16 weights
+            self._fn = None
 
     @property
     def available(self):
-        return False
+        return self._fn is not None
 
     def clear(self):
         self.vals = []
 
+    @torch.no_grad()
     def update(self, pred, gt):
-        pass
+        if self._fn is None:
+            return
+        a, b = (_t(x).to(self.device) for x in (pred, gt))
+        self.vals.append(float(self._fn(a, b)))
 
     def measure(self):
-        return 0.0
+        return float(np.mean(self.vals)) if self.vals else 0.0
 
     def report(self):
-        return "LPIPS = n/a (no VGG16 in the port yet)"
+        if not self.available:
+            return "LPIPS = n/a (no local VGG weights)"
+        return f"LPIPS = {self.measure():.6f}"

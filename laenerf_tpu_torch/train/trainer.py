@@ -4,12 +4,13 @@ of the parameters, per-pixel random background compositing for RGBA
 targets, an occupancy refresh every 16 steps (full while fewer than 16
 updates ran, partial after), chunked tile-ordered full-image rendering
 with the EMA parameters, the distillation fine-tune step (with optional
-depth supervision) and full-frame distill renders, evaluation with PSNR and
-SSIM, and checkpoints in the JAX package's npz layout.
+depth supervision) and full-frame distill renders, evaluation with PSNR,
+SSIM and LPIPS, and checkpoints in the JAX package's npz layout.
 
 Randomness comes from one torch.Generator per Trainer (seeded by `seed`);
 every draw can be injected instead (`bg`, `noises`, occupancy `jitter`).
-The NPR and CLIP steps are not ported yet.
+The NPR fine-tune step (train_step_npr) is here too; the CLIP step is not
+ported yet.
 """
 
 import copy
@@ -90,14 +91,60 @@ def train_step(net, ema_net, optimizer, scheduler, occupancy, pose,
         dw = (depth_target > 0).to(torch.float32)
         loss = loss + depth_weight * torch.mean(
             ((out["depth"] - (depth_target - out["nears"])) * dw) ** 2)
+    _apply_step(net, ema_net, optimizer, scheduler, loss, ema_decay)
+    return {"loss": loss.detach(), "per_ray_error": per_ray.detach(),
+            "n_samples": out["n_samples"]}
+
+
+def _apply_step(net, ema_net, optimizer, scheduler, loss, ema_decay):
+    """Backward, Adam step, LR schedule step and the EMA update."""
     loss.backward()
     optimizer.step()
     scheduler.step()
     with torch.no_grad():
         for e, p in zip(ema_net.parameters(), net.parameters()):
             e.mul_(ema_decay).add_(p, alpha=1.0 - ema_decay)
-    return {"loss": loss.detach(), "per_ray_error": per_ray.detach(),
-            "n_samples": out["n_samples"]}
+
+
+def train_step_npr(net, ema_net, optimizer, scheduler, occupancy, pose,
+                   intrinsics, inds, target, style_img, target_weights,
+                   depth_target, depth_weights, *, render_cfg: RenderConfig,
+                   ema_decay: float, H: int, W: int,
+                   style_weight_d: float = 0.5, depth_weight_d: float = 1e-3,
+                   bg=None, noises=None, generator=None):
+    """The NPR fine-tune step: the target_weights-weighted MSE toward the
+    registration image, plus style_weight_d times the (1 - w / 2)-weighted
+    MSE toward the stylized image, plus depth_weight_d times the masked
+    depth MSE (depth_target absolute, against depth + near).
+
+    Args:
+      target, style_img: [N, 4] RGBA rows of the sampled pixels, composited
+        on the random background bg [N, 3] (drawn from `generator` when
+        not given). noises as in train_step.
+    Returns aux {"loss"} (0-d tensor).
+    """
+    rays_o, rays_d = get_rays(pose, intrinsics, inds, H, W)
+    if bg is None:
+        bg = torch.rand((inds.shape[0], 3), generator=generator,
+                        device=pose.device)
+    gt_rgb = target[:, :3] * target[:, 3:] + bg * (1.0 - target[:, 3:])
+    gt_style = style_img[:, :3] * style_img[:, 3:] \
+        + bg * (1.0 - style_img[:, 3:])
+    w = target_weights[:, None]
+
+    optimizer.zero_grad(set_to_none=True)
+    out = render_rays_train(net, occupancy, rays_o, rays_d,
+                            render_cfg=render_cfg, bg_color=bg, perturb=True,
+                            noises=noises, generator=generator)
+    pred = out["image"]
+    loss = torch.mean((w * (pred - gt_rgb)) ** 2)
+    loss = loss + style_weight_d * torch.mean(
+        ((1.0 - w / 2.0) * (gt_style - pred)) ** 2)
+    loss = loss + depth_weight_d * torch.mean(
+        (depth_weights * (out["depth"] - (depth_target - out["nears"])))
+        ** 2)
+    _apply_step(net, ema_net, optimizer, scheduler, loss, ema_decay)
+    return {"loss": loss.detach()}
 
 
 def occ_update(net, occ_state, *, bound: float, full: bool,
@@ -142,7 +189,8 @@ class Trainer:
                                         render_cfg.grid_size,
                                         device=self.device)
         self.global_step = 0
-        self.stats = {"loss": [], "psnr": []}
+        self.stats = {"loss": [], "psnr": [], "lpips": []}
+        self._lpips_meter = None  # built by the first evaluate
         self.workspace = workspace
         self.ckpt = None
         if workspace is not None:
@@ -209,6 +257,34 @@ class Trainer:
         return self._step(batch, has_alpha, distill=True,
                           depth_target=depth_target, bg=bg, noises=noises)
 
+    def train_one_batch_npr(self, dataset, npr_view, num_rays: int = 4096,
+                            inds=None, bg=None, noises=None):
+        """One NPR fine-tune step on a baked supervision view
+        (editing/npr_trainer.py::build_npr_nerf_dataset) at num_rays
+        random pixels of it. inds [num_rays], bg and noises are drawn from
+        the trainer's generator unless given."""
+        self.maybe_update_occupancy()
+        H, W = dataset.H, dataset.W
+        idx = int(npr_view["view_index"])
+        if inds is None:
+            inds = torch.randint(0, H * W, (num_rays,),
+                                 generator=self.generator, device=self.device)
+        inds = torch.as_tensor(inds, dtype=torch.int64, device=self.device)
+
+        def rows(key, width):
+            return self._tensor(npr_view[key]).reshape(H * W, width)[inds]
+
+        aux = train_step_npr(
+            self.net, self.ema_net, self.optimizer, self.scheduler,
+            self.occ_state.occupancy, self._tensor(dataset.poses[idx]),
+            self._tensor(dataset.intrinsics), inds, rows("target", 4),
+            rows("style_img", 4), rows("target_weights", 1)[:, 0],
+            rows("depth", 1)[:, 0], rows("depth_weights", 1)[:, 0],
+            render_cfg=self.render_cfg, ema_decay=self.ema_decay, H=H, W=W,
+            bg=bg, noises=noises, generator=self.generator)
+        self.global_step += 1
+        return aux
+
     @torch.no_grad()
     def render_image(self, pose, intrinsics, H: int, W: int, bg_color=1.0,
                      use_ema: bool = True):
@@ -248,10 +324,11 @@ class Trainer:
     @torch.no_grad()
     def render_distill_frame(self, edit_grid, pose, intrinsics, H: int,
                              W: int, grow_grid: bool = False, chunk=None,
-                             net=None):
+                             net=None, dir_offset=None):
         """Full-frame distill-path render in raster order, in pieces of at
         most chunk rays (eval_chunk by default; the last one shorter, no
-        padding), with the EMA network unless `net` is given. The skip
+        padding), with the EMA network unless `net` is given; dir_offset
+        [2] jitters every ray off its pixel centre (get_rays). The skip
         field (of the edit grid when grow_grid, else of the density grid)
         and the gather table are built once per frame.
         Returns numpy arrays [H*W, ...] (image, depth, depth_edit, weights,
@@ -263,8 +340,9 @@ class Trainer:
         march_src = egrid if grow_grid else self.occ_state.occupancy
         skip_flat = build_march_tables(march_src, render_cfg=self.render_cfg)
         gather_table = gather_table_for(net)
-        rays_o, rays_d = pixel_rays(self._tensor(pose),
-                                    self._tensor(intrinsics), H, W)
+        rays_o, rays_d = pixel_rays(
+            self._tensor(pose), self._tensor(intrinsics), H, W,
+            None if dir_offset is None else self._tensor(dir_offset))
         n = H * W
         keys = ("image", "depth", "depth_edit", "weights", "weights_edit",
                 "x_term", "nears")
@@ -284,9 +362,13 @@ class Trainer:
         return res
 
     def evaluate(self, dataset, max_views=None):
-        """PSNR and SSIM over a split's views (white background); LPIPS is
-        gated (train/metrics.py). Returns the mean PSNR."""
-        pm, sm, lm = psnr_meter(), ssim_meter(), LPIPSMeter()
+        """PSNR, SSIM and (with local VGG-16 weights) LPIPS over a split's
+        views (white background). The LPIPS meter is built once and kept.
+        Returns the mean PSNR."""
+        if self._lpips_meter is None:
+            self._lpips_meter = LPIPSMeter(device=self.device)
+        pm, sm, lm = psnr_meter(), ssim_meter(), self._lpips_meter
+        lm.clear()
         n = len(dataset) if max_views is None else min(max_views,
                                                        len(dataset))
         for i in range(n):
@@ -299,6 +381,9 @@ class Trainer:
                 m.update(img, gt)
         self.log(f"[eval] {pm.report()} | {sm.report()} | {lm.report()}")
         self.stats["psnr"].append(pm.measure())
+        if lm.available:
+            self.stats["lpips"].append(lm.measure())
+            self.log(f"eval/lpips {lm.measure():.6f}")
         return pm.measure()
 
     # -- checkpoints -------------------------------------------------------

@@ -69,3 +69,55 @@ def camera_rays(seed, n, spread=0.5):
 
 def t(a, dtype=None):
     return torch.tensor(np.asarray(a), dtype=dtype)
+
+
+def write_vgg_npz(path, layout, seed=0):
+    """A synthetic VGG npz in torchvision's `features.state_dict()` layout
+    (the recipe of tests/test_vgg_weights.py)."""
+    from laenerf_tpu.editing.vgg import _layer_indices
+
+    rng = np.random.RandomState(seed)
+    arrays = {}
+    cin = 3
+    for i, (kind, cout) in enumerate(_layer_indices(layout)):
+        if kind != "conv":
+            continue
+        arrays[f"{i}.weight"] = rng.randn(cout, cin, 3, 3).astype(
+            np.float32) * 0.05
+        arrays[f"{i}.bias"] = rng.randn(cout).astype(np.float32) * 0.01
+        cin = cout
+    np.savez(path, **arrays)
+    return arrays
+
+
+def max_rel_err(got, ref):
+    """max |got - ref| over max |ref|."""
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    return float(np.abs(got - ref).max() / max(np.abs(ref).max(), 1e-30))
+
+
+def tiny_scene_trainer(tmp_path, seed=51, H=24, W=24, n_train=3, steps=4):
+    """The port's Trainer on a tiny procedural scene (CPU): seeded params,
+    the blob occupancy grid, then a few train steps. Returns (trainer,
+    train split, test split)."""
+    from laenerf_tpu_torch.data import NeRFDataset, generate_synthetic_scene
+    from laenerf_tpu_torch.train import Trainer
+
+    scene = str(tmp_path / "scene")
+    generate_synthetic_scene(scene, n_train=n_train, n_val=0, n_test=1, H=H,
+                             W=W, device="cpu")
+    ds = NeRFDataset(scene, "train", num_rays=256)
+    test = NeRFDataset(scene, "test")
+    tr = Trainer(MODEL_CFG, RENDER_CFG, device="cpu",
+                 workspace=str(tmp_path / "ws"))
+    tr.net.load_state_dict(params_from_jax(jax_params(seed)))
+    tr.ema_net.load_state_dict(tr.net.state_dict())
+    occ = blob_occupancy(seed + 1)
+    tr.occ_state.occupancy = t(occ)
+    tr.occ_state.density_grid = t(occ.astype(np.float32))
+    tr.occ_state.mean_density = torch.tensor(float(occ.mean()))
+    tr.occ_state.iter_density = 16
+    tr.global_step = 1
+    for step in range(steps):
+        tr.train_one_batch(ds.get_batch(step % len(ds)), has_alpha=True)
+    return tr, ds, test

@@ -238,6 +238,84 @@ def test_render_rays_distill_on_card_matches_cpu(cuda, grow):
                                    rtol=0, msg=k)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,layers", [("vgg19", (10, 12, 14)),
+                                         ("vgg16", (11, 13, 15, 29))])
+def test_vgg_features_on_card_match_cpu(cuda, arch, layers):
+    """The VGG stacks in f32 on the card (TF32 off) against the CPU: the
+    same seeded random filters, features within 1e-4 of the CPU's max."""
+    from laenerf_tpu_torch.editing.vgg import vgg_features, vgg_init
+
+    x = torch.tensor(np.random.RandomState(7).randn(1, 3, 64, 80),
+                     dtype=torch.float32)
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        with pytest.warns(UserWarning, match="random filters"):
+            params, kinds, _ = vgg_init(arch, device=dev)
+        outs.append([f.cpu() for f in vgg_features(params, kinds, x.to(dev),
+                                                   layers)])
+    assert not torch.backends.cudnn.allow_tf32
+    for g, r in zip(*outs):
+        assert _rel_err(g, r) < 1e-4
+
+
+@pytest.mark.cuda
+def test_style_step_on_card_matches_cpu(cuda):
+    """One LAENeRF step with the Gram term past warm-up on the card (K1 in
+    the encoder's backward) against the same step on the CPU: the loss at
+    1e-3 relative, the encoder gradient at 1e-2 of its max (bf16 MLPs)."""
+    from laenerf_tpu_torch.editing import (LAENeRFConfig, StyleLossWeights,
+                                           StyleNetwork, laenerf_init,
+                                           laenerf_train_step,
+                                           make_style_optimizer)
+
+    cfg = LAENeRFConfig(num_levels=4, log2_hashmap_size=12,
+                        num_palette_bases=4)
+    rng = np.random.RandomState(8)
+    Hs = Ws = 32
+    n, n_pad = 300, 1024
+    inds = np.full(n_pad, Hs * Ws, np.int32)
+    inds[:n] = np.sort(rng.choice(np.array(
+        [r * Ws + c for r in range(6, 26) for c in range(8, 28)]), n,
+        replace=False))
+    valid = np.arange(n_pad) < n
+    d = rng.randn(n_pad, 3)
+    batch = {"valid": valid, "inds": inds,
+             "x_term": rng.uniform(-0.6, 0.6, (n_pad, 3)) * valid[:, None],
+             "dirs": d / np.linalg.norm(d, axis=-1, keepdims=True),
+             "targets": rng.rand(n_pad, 3) * valid[:, None],
+             "tv_h": rng.rand(15, 16), "tv_v": rng.rand(16, 15)}
+    style_img = rng.rand(3, 40, 48)
+    weights = StyleLossWeights(style_weight=5e4, tv_weight=1e-2,
+                               tv_depth_guide=True, warmup_iterations=0)
+    state = None
+    losses, grads = [], []
+    for dev in (cuda, torch.device("cpu")):
+        model, active = laenerf_init(cfg, device=dev,
+                                     generator=torch.Generator(
+                                         device=dev).manual_seed(9))
+        if state is None:
+            state = {k: v.cpu() for k, v in model.state_dict().items()}
+        model.load_state_dict(state)
+        with pytest.warns(UserWarning, match="random filters"):
+            sn = StyleNetwork(style_img, size=24, seed=3, device=dev)
+        tb = {k: torch.as_tensor(v, device=dev) if k in ("valid", "inds")
+              else torch.as_tensor(v, dtype=torch.float32, device=dev)
+              for k, v in batch.items()}
+        before = scatter_add_rows.launches
+        aux = laenerf_train_step(
+            model, make_style_optimizer(model), active, tb, weights=weights,
+            H=Hs, W=Ws, crop_h=16, crop_w=16, past_warmup=True,
+            crop_origin=(6, 8), style_network=sn, gram_targets=sn.targets,
+            crop_size=24)
+        if dev == cuda:
+            assert scatter_add_rows.launches == before + 1
+        losses.append(float(aux["loss"]))
+        grads.append(model.encoder.grad.cpu())
+    assert abs(losses[0] - losses[1]) <= 1e-3 * abs(losses[1]), losses
+    assert _rel_err(grads[0], grads[1]) < 1e-2
+
+
 GATHER_DTYPES = {"f32": torch.float32, "i32": torch.int32, "i8": torch.int8}
 
 
