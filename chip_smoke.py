@@ -68,13 +68,14 @@ Phases, one or more lines each, tagged with the seconds since the start
   10. render: one 800x800 frame with Trainer.render_image, and the
      train-view PSNR at 100x100.
   11. profile: kernel launches and device-busy share of a few train steps,
-     and K1's device time per launch inside them.
+     and K1's device time per launch inside them, and inside one train
+     step at each span in turns (k1_span_turns).
   12. recolor: the editing path on the trained NeRF (EditPipeline's
      phases in run_all's order). First what the centre pixel of train view
      0 selects (project_points, grown 4000 pops): its termination point
-     and its edit dataset, for the record. Then a region seeded inside the
-     scene's centre sphere as the recolor gate seeds it, grown the same
-     way, the edit dataset, 300 LAENeRF steps (8 bases, a 16-level
+     and its edit dataset over the first 4 views, for the record. Then a
+     region seeded inside the scene's centre sphere as the recolor gate
+     seeds it, grown the same way, the edit dataset, 300 LAENeRF steps (8 bases, a 16-level
      C = 2 lg19 encoder, the palette pruned at step 200), distillation
      with a recolored palette, 64 fine-tune steps and the eval renders;
      checks that the edit dataset is not empty, the LAENeRF MSE falls, a
@@ -90,7 +91,7 @@ Phases, one or more lines each, tagged with the seconds since the start
      (EditPipeline(mode="style") in run_all's order) at the recolor gate's
      style width: VGG-19 to index 14, style layers 10/12/14, crop_size 256,
      style_weight 130, 8 bases, style_lg 19; 300 LAENeRF steps, warm-up
-     100, pruning at 200, 64 fine-tune steps; then preserve_color's
+     100, pruning at 200, 32 fine-tune steps; then preserve_color's
      LAENeRF phase on the same edit dataset. Checks that the Gram term ran
      in every step past warm-up, the MSE falls, K1 launches in every
      LAENeRF and fine-tune step, distillation changes pixels and the
@@ -100,13 +101,29 @@ Phases, one or more lines each, tagged with the seconds since the start
      against its plain version and index_add_.
   14. npr: run_npr_pipeline at its defaults (VGG-16 to index 29,
      feature_size 256, 4 bases, no direction encoding) from train view 0
-     with its green channel doubled; 200 LAENeRF and 64 fine-tune steps.
+     with its green channel doubled; 200 LAENeRF and 32 fine-tune steps.
      Checks style_enc.npz and timings.json, the falling NPR MSE, finite
      fine-tune losses and K1 in every step; then K1 on the fine-tune
      backward's input (held to REL_TOL of the largest sum of magnitudes
      into one row: its gradients cancel).
   15. lpips: Trainer.evaluate over 2 test views with LPIPS through a
      synthetic VGG-16 npz, against the same LPIPS on the CPU.
+  16. cli: the command-line entry point (laenerf_tpu_torch.pipeline.cli.
+     main, in process) on a colmap-layout copy of a 17-view 100x100
+     procedural scene with fern's flags (bound 2, no bg, -O, dt_gamma 0,
+     density_thresh 10) and --error_map, at the CLI's own width (16-level
+     C = 2 lg19 grid, 2 cascades, 1024 march events, m_cap 32): 128 -m nerf
+     steps (finite losses, K1 in every step, a moved error map, a
+     checkpoint, and a falling loss, read as each batch's per-ray errors
+     reweighted by 1 / p of their error-map cells: the batch loss itself
+     rises as the map draws the pixels with high error; ms/step, the host's
+     error-map share, occupancy, val PSNR),
+     --test --save_mesh at 128^3 (11 slerp frames finite in [0, 1], the
+     video or its PNG frames, mesh.ply's vertex and face counts), 16 more
+     steps with --patch_size 8 and the patch-LPIPS term on (one batch's
+     value on the card against the CPU within rel 1e-5), then K1 on a CLI
+     step's backward input (held to REL_TOL of the largest sum of
+     magnitudes) against its plain version and index_add_.
 Then one JSON line with every kernel of the path, the nvidia-smi line, and
 the final {"ok": true, "device": ...} line.
 
@@ -114,6 +131,7 @@ Imports torch and the port only, never JAX.
 """
 
 import contextlib
+import copy
 import dataclasses
 import json
 import math
@@ -1216,11 +1234,6 @@ def phase_render(card, tr, ds):
     phase("render", f"{H}x{W} frame: {1e3 * dt:.1f} ms/frame, "
                     f"{H * W / dt:.0f} rays/s (first frame), values in "
                     f"[{lo:.6f}, {hi:.8f}] ({card})")
-    s0 = time.perf_counter()
-    tr.render_image(ds.poses[1], intr, H, W)
-    dt = time.perf_counter() - s0
-    phase("render", f"{H}x{W} frame: {1e3 * dt:.1f} ms/frame, "
-                    f"{H * W / dt:.0f} rays/s (second frame) ({card})")
     small, _ = tr.render_image(ds.poses[0], ds.intrinsics, ds.H, ds.W)
     gt = ds.images[0]
     gt = gt[..., :3] * gt[..., 3:] + (1.0 - gt[..., 3:])
@@ -1276,7 +1289,7 @@ def k1_launch_us(fn):
     return sum(k1) / len(k1) if k1 else None
 
 
-def k1_span_turns(tr, ds, spans=(1, 16, 32, 64), steps=2):
+def k1_span_turns(tr, ds, spans=(1, 16, 32, 64), steps=1):
     """K1's device time per launch inside train steps at each of `spans`
     (rows a lane walks down the backward's [samples, 64] idx), in turns:
     the spans in order, then reversed, `steps` profiled steps each."""
@@ -1369,8 +1382,11 @@ def clicked_region(card, tr, ds):
     pts = project_points(tr, ds.poses[0], ds.intrinsics,
                          [[ds.W // 2, ds.H // 2]], ds.H, ds.W)
     grid, _, _ = grown_region(tr, pts)
+    # the first 4 views only: a record, cut to fit the run
+    views = copy.copy(ds)
+    views.poses, views.images = ds.poses[:4], ds.images[:4]
     try:
-        ed = EditDataset(tr, ds, grid.grid, None, depth_diff=0.5,
+        ed = EditDataset(tr, views, grid.grid, None, depth_diff=0.5,
                          smooth_transition=False)
         w8s = np.concatenate([v["w8s"][:int(v["n_valid"])]
                               for v in ed.views])
@@ -1593,11 +1609,12 @@ def phase_recolor(card, dev, tr, ds, tmp):
 # the style phase's step counts and the gate's style configuration
 # (scripts/recolor_gate.py:100-124, run_common.sh's -m style flags), steps
 # cut to fit the run (the gate runs 10,000 / 1,500 / 7,000 and warm-up
-# 1,000)
+# 1,000; the style and NPR fine-tunes ran 64 steps until the CLI phase
+# joined the run)
 STYLE_STEPS = {"train_steps_style": 300, "distill_palette_steps": 100,
-               "train_steps_distill": 64}
+               "train_steps_distill": 32}
 STYLE_WARMUP = 100
-NPR_STEPS = {"train_steps_style": 200, "train_steps_distill": 64}
+NPR_STEPS = {"train_steps_style": 200, "train_steps_distill": 32}
 MSE_WINDOW = 50  # steps averaged at each end of an MSE history
 
 
@@ -1835,30 +1852,44 @@ def phase_npr(card, dev, tr, ds, tmp):
     return launches, site
 
 
+@contextlib.contextmanager
+def synthetic_vgg16(tmp):
+    """LAENERF_VGG16_NPZ naming a synthetic VGG-16 npz (random weights in
+    torchvision's layout, tests/test_vgg_weights.py's recipe: LPIPS through
+    it is no perceptual measure) while the block runs."""
+    import os
+
+    from laenerf_tpu_torch.editing import VGG16_LAYOUT
+    from laenerf_tpu_torch.editing.vgg import _layer_indices
+
+    path = f"{tmp}/vgg16_features.npz"
+    if not Path(path).exists():
+        rng = np.random.RandomState(0)
+        arrays, cin = {}, 3
+        for i, (kind, cout) in enumerate(_layer_indices(VGG16_LAYOUT)):
+            if kind == "conv":
+                arrays[f"{i}.weight"] = (rng.randn(cout, cin, 3, 3)
+                                         * 0.05).astype(np.float32)
+                arrays[f"{i}.bias"] = (rng.randn(cout) * 0.01).astype(
+                    np.float32)
+                cin = cout
+        np.savez(path, **arrays)
+    os.environ["LAENERF_VGG16_NPZ"] = path
+    try:
+        yield path
+    finally:
+        del os.environ["LAENERF_VGG16_NPZ"]
+
+
 def phase_lpips(card, tr, tmp, views=2):
     """Trainer.evaluate once with LPIPS on, through a synthetic VGG-16 npz
     (random weights in torchvision's layout, tests/test_vgg_weights.py's
     recipe: the number is no perceptual measure), against the same LPIPS on
     the CPU."""
-    import os
-
     from laenerf_tpu_torch.data import NeRFDataset
-    from laenerf_tpu_torch.editing import VGG16_LAYOUT
-    from laenerf_tpu_torch.editing.vgg import _layer_indices, lpips_fn
+    from laenerf_tpu_torch.editing.vgg import lpips_fn
 
-    rng = np.random.RandomState(0)
-    arrays, cin = {}, 3
-    for i, (kind, cout) in enumerate(_layer_indices(VGG16_LAYOUT)):
-        if kind == "conv":
-            arrays[f"{i}.weight"] = (rng.randn(cout, cin, 3, 3)
-                                     * 0.05).astype(np.float32)
-            arrays[f"{i}.bias"] = (rng.randn(cout) * 0.01).astype(
-                np.float32)
-            cin = cout
-    path = f"{tmp}/vgg16_features.npz"
-    np.savez(path, **arrays)
-    os.environ["LAENERF_VGG16_NPZ"] = path
-    try:
+    with synthetic_vgg16(tmp):
         test = NeRFDataset(tmp, "test")
         tr.evaluate(test, max_views=views)  # its first: builds the meter
         if not tr.stats["lpips"]:
@@ -1873,8 +1904,6 @@ def phase_lpips(card, tr, tmp, views=2):
             gt = gt[..., :3] * gt[..., 3:] + (1.0 - gt[..., 3:])
             vals.append(float(cpu_fn(torch.as_tensor(img),
                                      torch.as_tensor(gt, dtype=torch.float32))))
-    finally:
-        del os.environ["LAENERF_VGG16_NPZ"]
     cpu_lpips = float(np.mean(vals))
     if not math.isfinite(card_lpips) or \
             not abs(card_lpips - cpu_lpips) <= 1e-3 * abs(cpu_lpips):
@@ -1883,6 +1912,326 @@ def phase_lpips(card, tr, tmp, views=2):
                    f"(synthetic weights): {card_lpips:.6f} on the card, "
                    f"{cpu_lpips:.6f} on the CPU, difference "
                    f"{abs(card_lpips - cpu_lpips):.2e} ({card})")
+
+
+# the CLI phase: scripts/run_common.sh's COMMON flags with
+# scripts/configs_llff/fern.sh's values, at the CLI's own model width
+# (make_configs: the 16-level C = 2 lg19 grid, 2 cascades at bound 2,
+# max_steps = march_iters = 1024, m_cap_per_ray 32). Cuts, listed in
+# PERF.md: --iters 10,000 -> 128 (the LR decay shortens with it), --scale
+# 0.02 and --offset 0 0 1.5 (LLFF's pose units) -> 0.33 and 0 0 0, 100^2
+# frames, --mesh_resolution 256 -> 128
+CLI_STEPS = 128
+CLI_PATCH_STEPS = 16
+CLI_MESH_RES = 128
+CLI_FLAGS = ["--bound", "2", "--scale", "0.33", "--offset", "0", "0", "0",
+             "--bg_radius", "0", "--density_thresh", "10", "--min_near",
+             "0.2", "--no_bg", "-O", "--dt_gamma", "0", "--error_map"]
+
+
+def colmap_scene(tmp, dev):
+    """A colmap-layout copy of the procedural 17-view 100^2 scene (one
+    transforms.json of RGB frames composited over white,
+    tests/test_colmap_fixture.py's recipe): frame 0 is val, 16 are train."""
+    from PIL import Image
+
+    from laenerf_tpu_torch.data import generate_synthetic_scene
+
+    src, dst = f"{tmp}/cli_blender", f"{tmp}/cli_colmap"
+    generate_synthetic_scene(src, n_train=17, n_val=0, n_test=0, H=100,
+                             W=100, device=dev)
+    Path(dst, "images").mkdir(parents=True)
+    tf = json.loads(Path(src, "transforms_train.json").read_text())
+    frames = []
+    for i, fr in enumerate(tf["frames"]):
+        fp = Path(src, fr["file_path"])
+        if not fp.suffix:
+            fp = fp.with_suffix(".png")
+        rgba = np.asarray(Image.open(fp)).astype(np.float32) / 255.0
+        rgb = rgba[..., :3] * rgba[..., 3:] + (1.0 - rgba[..., 3:])
+        name = f"images/frame_{i:03d}.png"
+        Image.fromarray((rgb * 255).astype(np.uint8)).save(Path(dst, name))
+        frames.append({"file_path": name,
+                       "transform_matrix": fr["transform_matrix"]})
+    Path(dst, "transforms.json").write_text(json.dumps(
+        {"camera_angle_x": tf["camera_angle_x"], "frames": frames}))
+    return dst
+
+
+@contextlib.contextmanager
+def wrapped(obj, name, wrap):
+    """obj.name replaced by wrap(obj.name) while the block runs."""
+    real = getattr(obj, name)
+    setattr(obj, name, wrap(real))
+    try:
+        yield
+    finally:
+        setattr(obj, name, real)
+
+
+def cli_recorder(rec):
+    """Wrappers that record what one CLI run does, on the classes and
+    module it calls: each Trainer built, each train step's loss (read back,
+    so the step's time ends in a sync), host seconds and K1 launches, the
+    host seconds of get_batch (pixel sampling by the error map) and
+    update_error_map, each render and the mesh export.
+
+    Under error-map sampling a batch's loss is not the image's: the map
+    draws the cells where the error is high. So each step also records its
+    per-ray errors reweighted by 1 / p of each ray's cell at the draw
+    (self-normalised importance weights), an estimate of the mean error
+    over uniformly drawn pixels."""
+    from laenerf_tpu_torch.data.provider import NeRFDataset
+    from laenerf_tpu_torch.ops.scatter_add import scatter_add_rows
+    from laenerf_tpu_torch.train import Trainer
+    from laenerf_tpu_torch.utils import mesh
+
+    def init(real):
+        def f(self, *a, **k):
+            real(self, *a, **k)
+            rec["trainers"].append(self)
+            lpips = self.patch_lpips_fn
+            if lpips is not None:
+                def patch_lpips(a, b):
+                    out = lpips(a, b)
+                    if "lpips" not in rec:
+                        rec["lpips"] = (a.detach().clone(), b.detach().clone(),
+                                        out.detach().clone())
+                    rec["lpips_calls"] += 1
+                    return out
+                self.patch_lpips_fn = patch_lpips
+        return f
+
+    def step(real):
+        def f(self, batch, has_alpha, **kw):
+            before = scatter_add_rows.launches
+            s0 = time.perf_counter()
+            aux = real(self, batch, has_alpha, **kw)
+            rec["loss"].append(float(aux["loss"]))
+            rec["step_s"].append(time.perf_counter() - s0)
+            rec["k1"].append(scatter_add_rows.launches - before)
+            if "inds_coarse" in batch:
+                w = rec["cell_w"][-1]
+                err = aux["per_ray_error"].cpu().numpy()
+                rec["uniform_loss"].append(float((w * err).sum() / w.sum()))
+            return aux
+        return f
+
+    def get_batch(real):
+        def f(self, index):
+            s0 = time.perf_counter()
+            batch = real(self, index)
+            rec["batch_s"].append(time.perf_counter() - s0)
+            if self not in rec["datasets"]:
+                rec["datasets"].append(self)
+            if "inds_coarse" in batch:
+                em = self.error_map[index]
+                rec["cell_w"].append(em.sum() / em[batch["inds_coarse"]])
+            return batch
+        return f
+
+    def update(real):
+        def f(self, *a, **k):
+            s0 = time.perf_counter()
+            real(self, *a, **k)
+            rec["update_s"].append(time.perf_counter() - s0)
+        return f
+
+    def render(real):
+        def f(self, *a, **k):
+            s0 = time.perf_counter()
+            img, depth = real(self, *a, **k)
+            rec["render_s"].append(time.perf_counter() - s0)
+            rec["renders"].append(img)
+            return img, depth
+        return f
+
+    def save_mesh(real):
+        def f(*a, **k):
+            s0 = time.perf_counter()
+            out = real(*a, **k)
+            rec["mesh_s"] = time.perf_counter() - s0
+            rec["mesh"] = out
+            return out
+        return f
+
+    stack = contextlib.ExitStack()
+    for obj, name, wrap in (
+            (Trainer, "__init__", init), (Trainer, "train_one_batch", step),
+            (Trainer, "render_image", render),
+            (NeRFDataset, "get_batch", get_batch),
+            (NeRFDataset, "update_error_map", update),
+            (mesh, "save_density_mesh", save_mesh)):
+        stack.enter_context(wrapped(obj, name, wrap))
+    return stack
+
+
+def cli_run(argv):
+    """One in-process CLI run with its record."""
+    from laenerf_tpu_torch.pipeline import cli
+
+    rec = {k: [] for k in ("trainers", "loss", "step_s", "k1", "batch_s",
+                           "update_s", "datasets", "render_s", "renders",
+                           "cell_w", "uniform_loss")}
+    rec["lpips_calls"] = 0
+    s0 = time.perf_counter()
+    with cli_recorder(rec):
+        cli.main(argv)
+    rec["seconds"] = time.perf_counter() - s0
+    return rec
+
+
+def check_steps(rec, n, what):
+    """n steps, each with a finite loss and at least one K1 launch."""
+    if len(rec["loss"]) != n:
+        raise AssertionError(f"{what}: {len(rec['loss'])} steps, not {n}")
+    if not all(math.isfinite(v) for v in rec["loss"]):
+        raise AssertionError(f"{what}: a non-finite loss")
+    if min(rec["k1"]) < 1:
+        raise AssertionError(f"{what}: a step launched no K1 "
+                             f"({rec['k1']})")
+
+
+def phase_cli(card, dev, tmp):
+    """The command-line entry point on a colmap scene at the CLI's model
+    width, in process through laenerf_tpu_torch.pipeline.cli.main: -m nerf
+    --error_map for CLI_STEPS steps, --test --save_mesh on its workspace,
+    then CLI_PATCH_STEPS more steps with --patch_size 8 and the
+    patch-LPIPS term (a synthetic VGG-16 npz). Returns K1's launches in the
+    three runs and K1's entry at a CLI step's backward input."""
+    from laenerf_tpu_torch.editing.vgg import lpips_fn
+    from laenerf_tpu_torch.ops.scatter_add import scatter_add_rows
+    from laenerf_tpu_torch.pipeline import cli
+
+    t_phase = time.perf_counter()
+    scene = colmap_scene(tmp, dev)
+    ws = f"{tmp}/cli_ws"
+    common = [scene, "--workspace", ws] + CLI_FLAGS
+    opt = cli.build_parser().parse_args(common)
+    model_cfg, render_cfg = cli.make_configs(opt)
+    spec = model_cfg.grid_spec
+    T = spec.table_rows
+    phase("cli", f"colmap scene: 16 train views and 1 val at 100x100 in "
+                 f"{time.perf_counter() - t_phase:.1f} s; model: "
+                 f"{spec.num_levels} levels x C={spec.level_dim}, "
+                 f"{T} table rows, bound {render_cfg.bound}, "
+                 f"{render_cfg.cascades} cascades of "
+                 f"{render_cfg.grid_size}^3, max_steps "
+                 f"{render_cfg.max_steps}, march_iters "
+                 f"{render_cfg.march_iters}, m_cap_per_ray "
+                 f"{render_cfg.m_cap_per_ray}")
+    if (spec.num_levels, spec.level_dim, render_cfg.cascades,
+            render_cfg.march_iters) != (16, 2, 2, 1024):
+        raise AssertionError("the CLI's configuration is not its default "
+                             "width")
+
+    # 1. -m nerf --error_map
+    before = scatter_add_rows.launches
+    with k1_capture(T, nth=CLI_STEPS // 2) as captured:
+        rec = cli_run(common + ["--iters", str(CLI_STEPS)])
+    check_steps(rec, CLI_STEPS, "-m nerf")
+    tr = rec["trainers"][0]
+    raw = [float(np.mean(v)) for v in (rec["loss"][:16], rec["loss"][-16:])]
+    uni = rec["uniform_loss"]
+    first, last = float(np.mean(uni[:16])), float(np.mean(uni[-16:]))
+    if not last < first:
+        raise AssertionError(f"CLI loss (reweighted to uniform pixels) did "
+                             f"not fall: {first} -> {last}")
+    train_ds = rec["datasets"][0]
+    moved = int((train_ds.error_map != 1.0).sum())
+    if not moved:
+        raise AssertionError("the error map did not move")
+    ckpts = sorted(Path(ws, "checkpoints").glob("*.npz"))
+    if not ckpts:
+        raise AssertionError("-m nerf wrote no checkpoint")
+    step_ms = 1e3 * float(np.median(rec["step_s"][16:]))
+    host_ms = [1e3 * float(np.median(rec[k])) for k in ("batch_s",
+                                                        "update_s")]
+    share = sum(host_ms) / (step_ms + sum(host_ms))
+    occ = tr.occ_state
+    phase("cli", f"-m nerf: {CLI_STEPS} steps, loss reweighted to uniform "
+                 f"pixels {first:.5f} -> {last:.5f} (first/last 16; the "
+                 f"batch loss as sampled by the error map {raw[0]:.5f} -> "
+                 f"{raw[1]:.5f}; by 16 steps: "
+                 f"{np.round([np.mean(uni[i:i + 16]) for i in range(0, CLI_STEPS, 16)], 5).tolist()}"
+                 f"), {step_ms:.1f} ms/step median "
+                 f"after 16 (mean {1e3 * np.mean(rec['step_s']):.1f}; loss "
+                 f"read back each step), K1 {sum(rec['k1'])} launches "
+                 f"(at least one a step); host error-map sampling "
+                 f"(get_batch) {host_ms[0]:.2f} ms and update "
+                 f"{host_ms[1]:.2f} ms a step median, "
+                 f"{100 * share:.1f}% of a step; error map: {moved} of "
+                 f"{train_ds.error_map.size} entries moved; "
+                 f"{occ.iter_density} occupancy refreshes, grid mean "
+                 f"density {float(occ.mean_density):.4f}, occ_frac "
+                 f"{float(occ.occupancy.float().mean()):.4f}; val PSNR "
+                 f"{tr.stats['psnr'][-1]:.2f} dB; checkpoint "
+                 f"{ckpts[-1].name}; run {rec['seconds']:.1f} s ({card})")
+
+    # 2. --test --save_mesh
+    rec = cli_run(common + ["--test", "--save_mesh", "--mesh_resolution",
+                            str(CLI_MESH_RES)])
+    frames = sorted(Path(ws, "results").glob("0*.png"))
+    if len(frames) != 11 or len(rec["renders"]) != 11:
+        raise AssertionError(f"--test wrote {len(frames)} frames")
+    for img in rec["renders"]:
+        lo, hi = float(np.nanmin(img)), float(np.nanmax(img))
+        if not np.isfinite(img).all() or lo < 0.0 or hi > 1.0 + 1e-5:
+            raise AssertionError(f"--test frame out of [0, 1]: [{lo}, {hi}]")
+    video = Path(ws, "results", "video.mp4")
+    video_frames = list(Path(ws, "results", "video_frames").glob("*.png"))
+    if not video.exists() and len(video_frames) != 11:
+        raise AssertionError("--test wrote no video")
+    verts, faces = rec["mesh"]
+    if not Path(ws, "mesh.ply").exists():
+        raise AssertionError("--save_mesh wrote no mesh.ply")
+    peak = float(rec["trainers"][0].occ_state.density_grid.max())
+    phase("cli", f"--test: 11 slerp frames finite in [0, 1], "
+                 f"{np.mean(rec['render_s']):.2f} s/frame mean (first "
+                 f"{rec['render_s'][0]:.2f}); video: "
+                 f"{'video.mp4' if video.exists() else 'video_frames/ (11 PNGs)'}"
+                 f"; mesh.ply at {CLI_MESH_RES}^3: {len(verts)} vertices, "
+                 f"{len(faces)} faces in {rec['mesh_s']:.1f} s (threshold "
+                 f"{opt.mesh_threshold}; the density grid's max {peak:.3f}); "
+                 f"run "
+                 f"{rec['seconds']:.1f} s ({card})")
+
+    # 3. --patch_size 8: the patch-LPIPS term
+    with synthetic_vgg16(tmp):
+        rec = cli_run(common + ["--patch_size", "8", "--iters",
+                                str(CLI_STEPS + CLI_PATCH_STEPS)])
+        cpu_fn = lpips_fn(device="cpu")
+    check_steps(rec, CLI_PATCH_STEPS, "--patch_size 8")
+    if rec["lpips_calls"] != CLI_PATCH_STEPS:
+        raise AssertionError(f"the patch-LPIPS term ran in "
+                             f"{rec['lpips_calls']} of {CLI_PATCH_STEPS} "
+                             f"steps")
+    a, b, out = rec["lpips"]
+    card_v = float(out.mean())
+    cpu_v = float(cpu_fn(a.float().cpu(), b.float().cpu()).mean())
+    rel = abs(card_v - cpu_v) / abs(cpu_v)
+    if not rel < 1e-5:
+        raise AssertionError(f"patch LPIPS card {card_v} vs CPU {cpu_v}")
+    launches = scatter_add_rows.launches - before
+    phase("cli", f"--patch_size 8: {CLI_PATCH_STEPS} steps with the "
+                 f"patch-LPIPS term ({a.shape[0]} patches of "
+                 f"{a.shape[1]}x{a.shape[2]} a step), loss "
+                 f"{rec['loss'][0]:.5f} -> {rec['loss'][-1]:.5f}, "
+                 f"{1e3 * np.median(rec['step_s']):.1f} ms/step median; "
+                 f"one batch's patch LPIPS card {card_v:.7e}, CPU "
+                 f"{cpu_v:.7e}, rel {rel:.2e} (f32); K1 launches in the "
+                 f"three runs {launches} ({card})")
+
+    # 4. K1 on the captured backward input
+    if "idx" not in captured:
+        raise AssertionError("no CLI backward reached K1")
+    site = k1_site(card, dev, "cli_nerf", captured["idx"], captured["rows"],
+                   T, "cli", cancels=True)
+    phase("cli", f"phase {time.perf_counter() - t_phase:.1f} s; cuts: "
+                 f"--iters 10,000 -> {CLI_STEPS} (+{CLI_PATCH_STEPS} with "
+                 f"patches), --scale/--offset 0.02/0 0 1.5 -> 0.33/0 0 0, "
+                 f"--mesh_resolution 256 -> {CLI_MESH_RES}, 100x100 frames")
+    return launches, site
 
 
 def main():
@@ -1965,6 +2314,11 @@ def main():
         phase("npr", f"K1 launches on the main path, train, recolor, style "
                      f"and NPR: {launches}")
         phase_lpips(card, tr, tmp)
+        scatter_add_rows.launches = 0
+        cli_launches, cli_site = phase_cli(card, dev, tmp)
+        launches += cli_launches
+        phase("cli", f"K1 launches on the main path, train, recolor, style, "
+                     f"NPR and CLI: {launches}")
 
     gather_src = "laenerf_tpu_torch/csrc/gather_probes.cu"
     scatter_src = "laenerf_tpu_torch/csrc/sorted_scatter.cu"
@@ -1984,7 +2338,8 @@ def main():
         "library_device_ms": k1["library_device_ms"],
         "train_step_device_ms": (None if k1_train_us is None
                                  else k1_train_us / 1e3),
-        "sites": k1["sites"] + [laenerf_site, style_site, npr_site],
+        "sites": k1["sites"] + [laenerf_site, style_site, npr_site,
+                                cli_site],
     }] + [kernel_entry(name, gather_src, gather_results, gather_launches)
           for name in ("take_rows", "take_lanes", "grid_probe")]
         + [kernel_entry(name, scatter_src, scatter_results, scatter_launches)

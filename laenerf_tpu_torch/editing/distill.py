@@ -8,8 +8,10 @@ palette; in the grow grid's transition shell interpolate toward the
 original palette; blend over the original NeRF render by the edit weights
 and write the result into the train image where the edit weight exceeds
 blend_thresh. Also records each view's depths for the fine-tune's depth
-supervision, writes the palette images, and returns (and writes as
-palette_eval.json) the weights' sparsity and TV statistics.
+supervision, optionally installs error maps from the edit weights (the
+fine-tune then samples its rays by them), writes the palette images, and
+returns (and writes as palette_eval.json) the weights' sparsity and TV
+statistics.
 """
 
 import json
@@ -21,6 +23,14 @@ import torch
 from ..utils.images import to_u8, write_png
 from ..utils.palette import palette_change_to_img, palette_to_img
 from .laenerf import laenerf_forward_train
+
+
+def _resize_128(img):
+    """Nearest-neighbour downsample to 128x128 (error-map resolution)."""
+    H, W = img.shape
+    ys = (np.arange(128) * H // 128).clip(0, H - 1)
+    xs = (np.arange(128) * W // 128).clip(0, W - 1)
+    return img[ys][:, xs]
 
 
 @torch.no_grad()
@@ -38,11 +48,10 @@ def distill_dataset(dataset, edit_dataset, model, active, palet_og,
       palet_og / palet_mod: [K, 3] original / modified palettes.
       palet_weights / palet_biases: [K] per-base weight and bias of the
         user's remap; default 1 and 0.
-      use_error_maps: not ported (the error-map sampler is not, ROADMAP
-        §1.5); True raises NotImplementedError.
+      use_error_maps: set dataset.error_map to each view's edit weights,
+        nearest-resized to 128x128, + 0.15, clipped to [0, 1] (1 for a
+        view without edit rays).
     """
-    if use_error_maps:
-        raise NotImplementedError("error-map sampling is not ported yet")
     dev = model.palette.device
     K = model.cfg.num_palette_bases
     pw_np = np.ones(K) if palet_weights is None else np.asarray(palet_weights)
@@ -59,6 +68,8 @@ def distill_dataset(dataset, edit_dataset, model, active, palet_og,
     H, W = dataset.H, dataset.W
     sp_losses, tv_losses = [], []
     dataset.depths = [np.zeros(H * W, np.float32) for _ in range(len(dataset))]
+    if use_error_maps:
+        dataset.error_map = np.ones((len(dataset), 128 * 128), np.float32)
 
     act = np.asarray(active.cpu() if isinstance(active, torch.Tensor)
                      else active)
@@ -117,6 +128,10 @@ def distill_dataset(dataset, edit_dataset, model, active, palet_og,
         d_full = np.zeros(H * W, np.float32)
         d_full[inds] = v["depths"][:n]
         dataset.depths[idx] = d_full
+
+        if use_error_maps:
+            em = np.clip(_resize_128(w8s_edit.reshape(H, W)) + 0.15, 0, 1)
+            dataset.error_map[idx] = em.reshape(-1)
 
         # palette sparsity and weight-TV statistics
         wnp = weights.cpu().numpy()[:n]

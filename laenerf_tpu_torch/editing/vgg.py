@@ -124,7 +124,7 @@ def vgg_features(params, kinds, x, out_layers):
 
 
 def normalize_imagenet(img):
-    """img [3, H, W] in [0, 1] -> ImageNet-normalised."""
+    """img [..., 3, H, W] in [0, 1] -> ImageNet-normalised."""
     mean = torch.as_tensor(IMAGENET_MEAN, device=img.device)[:, None, None]
     std = torch.as_tensor(IMAGENET_STD, device=img.device)[:, None, None]
     return (img - mean) / std
@@ -141,17 +141,21 @@ def lpips_fn(device="cuda"):
     pooled size would fall below 1 pixel are dropped for small images.
     Raises RuntimeError without pretrained VGG-16 weights.
 
-    Returns dist(a, b) for [H, W, 3] images in [0, 1] on `device`
-    (a 0-d tensor)."""
+    Returns dist(a, b) for images in [0, 1] on `device`: [H, W, 3] pairs
+    give a 0-d tensor, [B, H, W, 3] batches the [B] distances of their
+    pairs (one pass through the stack for the whole batch)."""
     if _npz_path("vgg16") is None:
         raise RuntimeError("LPIPS requires local vgg16 weights")
     params, kinds, _ = vgg_init("vgg16", device=device)
 
     def prep(x):
-        return normalize_imagenet(torch.movedim(x, -1, 0))[None]
+        return normalize_imagenet(torch.movedim(x, -1, -3))
 
     def dist(a, b):
-        size = min(a.shape[0], a.shape[1])
+        single = a.dim() == 3
+        if single:
+            a, b = a[None], b[None]
+        size = min(a.shape[1], a.shape[2])
         layers = tuple(l for l, p in _LPIPS_LAYERS if size >> (p + 1) >= 1)
         fa = vgg_features(params, kinds, prep(a), layers)
         fb = vgg_features(params, kinds, prep(b), layers)
@@ -161,7 +165,9 @@ def lpips_fn(device="cuda"):
                 xa, dim=1, keepdim=True), min=1e-8)
             nb = xb / torch.clamp(torch.linalg.vector_norm(
                 xb, dim=1, keepdim=True), min=1e-8)
-            total = total + torch.mean(torch.sum((na - nb) ** 2, dim=1))
-        return total / len(layers)
+            total = total + torch.mean(torch.sum((na - nb) ** 2, dim=1),
+                                       dim=(1, 2))
+        total = total / len(layers)
+        return total[0] if single else total
 
     return dist

@@ -5,3 +5,4 @@ from .occupancy import (OccupancyState, occupancy_init, update_occupancy,
                         mark_untrained_grid)
 from .renderer import (RenderConfig, render_rays_train, render_rays_infer,
                        render_rays_distill)
+from .stratified import render_rays_stratified, sample_pdf

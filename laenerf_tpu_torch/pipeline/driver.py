@@ -15,9 +15,6 @@ results_psnr_train.json, and render_*/ and masks/*/ PNGs.
 NPR (run_npr_pipeline): from one stylized reference view, the
 registration dataset, LAENeRF training on its targets, the baked
 supervision images and the NeRF fine-tune (train_one_batch_npr).
-
-The video writer is not ported yet: asking for it raises
-NotImplementedError.
 """
 
 import dataclasses
@@ -41,6 +38,7 @@ from ..models.renderer import render_rays_distill
 from ..train.checkpoints import load_pytree, save_pytree
 from ..utils.images import to_u8, write_png
 from ..utils.timers import PhaseTimer
+from ..utils.video import write_video
 
 
 @dataclasses.dataclass
@@ -318,8 +316,6 @@ class EditPipeline:
 
     def eval_phase(self, val_dataset=None, test_dataset=None,
                    video_dataset=None, log_fn=print):
-        if video_dataset is not None:
-            raise NotImplementedError("the video writer is not ported yet")
         tr = self.trainer
         psnrs = []
         for i in range(len(self.dataset)):
@@ -352,6 +348,12 @@ class EditPipeline:
                 mimg = np.zeros(mask.shape + (3,), np.uint8)
                 mimg[..., 1] = (mask * 255).astype(np.uint8)
                 write_png(os.path.join(mask_dir, f"{i:03d}.png"), mimg)
+        if video_dataset is not None:
+            frames = [to_u8(tr.render_image(p, video_dataset.intrinsics,
+                                            video_dataset.H,
+                                            video_dataset.W)[0])
+                      for p in video_dataset.poses]
+            write_video(self._path("video.mp4"), frames)
         self.timer.save(self._path("timings.json"))
         log_fn(f"[eval] {results} timings={self.timer.summary()}")
         return results

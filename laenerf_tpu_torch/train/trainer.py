@@ -4,8 +4,10 @@ of the parameters, per-pixel random background compositing for RGBA
 targets, an occupancy refresh every 16 steps (full while fewer than 16
 updates ran, partial after), chunked tile-ordered full-image rendering
 with the EMA parameters, the distillation fine-tune step (with optional
-depth supervision) and full-frame distill renders, evaluation with PSNR,
-SSIM and LPIPS, and checkpoints in the JAX package's npz layout.
+depth supervision) and full-frame distill renders, the patch-LPIPS term
+of patch-sampled batches, the epoch loop with error-map updates,
+evaluation with PSNR, SSIM and LPIPS, checkpoints in the JAX package's npz
+layout, and tensorboard scalars where tensorboardX imports.
 
 Randomness comes from one torch.Generator per Trainer (seeded by `seed`);
 every draw can be injected instead (`bg`, `noises`, occupancy `jitter`).
@@ -15,6 +17,7 @@ ported yet.
 
 import copy
 import os
+import time
 from types import SimpleNamespace
 
 import numpy as np
@@ -53,7 +56,8 @@ def train_step(net, ema_net, optimizer, scheduler, occupancy, pose,
                ema_decay: float, has_alpha: bool, bg_white: bool, H: int,
                W: int, bg=None, noises=None, generator=None,
                distill: bool = False, depth_target=None,
-               depth_weight: float = 1e-3):
+               depth_weight: float = 1e-3, patch_lpips_fn=None,
+               patch_size: int = 1):
     """One optimization step.
 
     Args:
@@ -65,6 +69,10 @@ def train_step(net, ema_net, optimizer, scheduler, occupancy, pose,
       distill: the fine-tune on distilled images; with a depth_target [N]
         (absolute ray depth, 0 where unsupervised) it adds
         depth_weight * mean(((depth - (target - near)) * [target > 0])^2).
+      patch_lpips_fn, patch_size: with patch_size > 1 and a batched LPIPS
+        (editing/vgg.py::lpips_fn), the rays are N / patch_size^2
+        independent patches and the loss adds 1e-3 * the mean LPIPS over
+        the [patch_size, patch_size, 3] patch pairs.
     Returns:
       aux dict: loss (0-d tensor), per_ray_error [N], n_samples [N]. The
       step's gradients stay in each parameter's .grad.
@@ -91,6 +99,10 @@ def train_step(net, ema_net, optimizer, scheduler, occupancy, pose,
         dw = (depth_target > 0).to(torch.float32)
         loss = loss + depth_weight * torch.mean(
             ((out["depth"] - (depth_target - out["nears"])) * dw) ** 2)
+    if patch_lpips_fn is not None and patch_size > 1:
+        ps = patch_size
+        loss = loss + 1e-3 * torch.mean(patch_lpips_fn(
+            out["image"].reshape(-1, ps, ps, 3), gt.reshape(-1, ps, ps, 3)))
     _apply_step(net, ema_net, optimizer, scheduler, loss, ema_decay)
     return {"loss": loss.detach(), "per_ray_error": per_ray.detach(),
             "n_samples": out["n_samples"]}
@@ -169,7 +181,7 @@ class Trainer:
                  ema_decay: float = 0.95, update_interval: int = 16,
                  bg_white: bool = False, eval_chunk: int = 16384,
                  seed: int = 0, workspace=None, name: str = "ngp",
-                 max_keep_ckpt: int = 2):
+                 max_keep_ckpt: int = 2, patch_size: int = 1):
         configure_matmul_precision()
         self.device = torch.device(device)
         self.model_cfg = model_cfg
@@ -193,10 +205,34 @@ class Trainer:
         self._lpips_meter = None  # built by the first evaluate
         self.workspace = workspace
         self.ckpt = None
+        self.writer = None
         if workspace is not None:
             os.makedirs(workspace, exist_ok=True)
             self.ckpt = CheckpointManager(workspace, name=name,
                                           max_keep=max_keep_ckpt)
+            try:
+                from tensorboardX import SummaryWriter
+            except ImportError:  # optional, as in the JAX package
+                pass
+            else:
+                self.writer = SummaryWriter(os.path.join(workspace, "run"))
+        # the patch-LPIPS term needs patch-sampled batches and local VGG-16
+        # weights; without the weights training runs without it
+        self.patch_size = patch_size
+        self.patch_lpips_fn = None
+        if patch_size > 1:
+            from ..editing.vgg import lpips_fn
+
+            try:
+                self.patch_lpips_fn = lpips_fn(device=self.device)
+            except RuntimeError:
+                self.log("[warn] patch LPIPS loss disabled "
+                         "(no local VGG16 weights)")
+
+    def log_scalar(self, tag, value, step=None):
+        if self.writer is not None:
+            self.writer.add_scalar(tag, value,
+                                   self.global_step if step is None else step)
 
     def log(self, msg):
         print(msg, flush=True)
@@ -237,7 +273,8 @@ class Trainer:
             self._tensor(batch["pixels"]), render_cfg=self.render_cfg,
             ema_decay=self.ema_decay, has_alpha=has_alpha,
             bg_white=self.bg_white, H=batch["H"], W=batch["W"],
-            generator=self.generator, **kw,
+            generator=self.generator, patch_lpips_fn=self.patch_lpips_fn,
+            patch_size=self.patch_size, **kw,
         )
         self.global_step += 1
         return aux
@@ -284,6 +321,45 @@ class Trainer:
             bg=bg, noises=noises, generator=self.generator)
         self.global_step += 1
         return aux
+
+    def train(self, dataset, max_steps=None, valid_dataset=None,
+              eval_interval: int = 0, log_every: int = 100):
+        """Train until global_step reaches max_steps (iters by default):
+        epochs of shuffled views, one batch each; the error map takes each
+        step's per-ray errors; with a valid_dataset, evaluate every
+        eval_interval epochs; save a checkpoint at the end."""
+        max_steps = max_steps or self.iters
+        has_alpha = dataset.images.shape[-1] == 4
+        self.mark_untrained(dataset)
+        t_start = time.time()
+        epoch = 0
+        while self.global_step < max_steps:
+            epoch += 1
+            for idx in dataset.epoch_indices():
+                if self.global_step >= max_steps:
+                    break
+                batch = dataset.get_batch(int(idx))
+                aux = self.train_one_batch(batch, has_alpha)
+                if "inds_coarse" in batch:
+                    dataset.update_error_map(
+                        int(idx), batch["inds_coarse"],
+                        aux["per_ray_error"].cpu().numpy())
+                if self.global_step % log_every == 0:
+                    loss = float(aux["loss"])
+                    self.stats["loss"].append(loss)
+                    self.log_scalar("train/loss", loss)
+                    self.log(
+                        f"step {self.global_step}/{max_steps} "
+                        f"loss={loss:.6f} "
+                        f"psnr={-10 * np.log10(max(loss, 1e-12)):.2f} "
+                        f"samples/ray="
+                        f"{float(aux['n_samples'].float().mean()):.1f} "
+                        f"({time.time() - t_start:.1f}s)")
+            # every eval_interval epochs, not every epoch
+            if (eval_interval and valid_dataset is not None
+                    and epoch % eval_interval == 0):
+                self.evaluate(valid_dataset)
+        self.save_checkpoint()
 
     @torch.no_grad()
     def render_image(self, pose, intrinsics, H: int, W: int, bg_color=1.0,
@@ -381,8 +457,11 @@ class Trainer:
                 m.update(img, gt)
         self.log(f"[eval] {pm.report()} | {sm.report()} | {lm.report()}")
         self.stats["psnr"].append(pm.measure())
+        self.log_scalar("eval/psnr", pm.measure())
+        self.log_scalar("eval/ssim", sm.measure())
         if lm.available:
             self.stats["lpips"].append(lm.measure())
+            self.log_scalar("eval/lpips", lm.measure())
             self.log(f"eval/lpips {lm.measure():.6f}")
         return pm.measure()
 

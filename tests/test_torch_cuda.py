@@ -841,3 +841,94 @@ def test_iota_rows_matches_plain(cuda, tile, C, n_tiles):
     assert torch.equal(got, cp.iota_rows_plain(n_tiles, tile, C, cuda))
     rows = torch.arange(tile, device=cuda, dtype=torch.float32)
     assert torch.equal(got, rows.repeat(n_tiles)[:, None].expand(-1, C))
+
+
+@pytest.mark.cuda
+def test_scatter_add_kernel_at_the_cli_backward_shape(cuda):
+    """K1 at the CLI's NeRF backward: [n, 16 levels x 8 corners] idx and
+    C = 2 bf16 rows into the 6,328,848-row table of the CLI's default
+    16-level C = 2 lg19 grid at bound 2 (level resolutions up to 4,097),
+    at the train step's full eval capacity (4,096 rays x 32 samples). The
+    error is held to REL_TOL of the largest sum of magnitudes into one row
+    (a NeRF's gradients of both signs cancel inside a row)."""
+    from laenerf_tpu_torch.models import NeRFConfig
+    from laenerf_tpu_torch.ops.hashgrid import _octo_corners
+
+    spec = NeRFConfig(bound=2.0).grid_spec
+    assert spec.table_rows == 6328848 and spec.level_dim == 2
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    n = 4096 * 32
+    idx, w = _octo_corners(spec, torch.rand((n, 3), generator=gen,
+                                            device=cuda))
+    grad = torch.randn((n, spec.num_levels, 2), generator=gen, device=cuda)
+    rows = (w[..., None] * grad[:, :, None, :]).to(torch.bfloat16)
+    idx, rows = idx.reshape(n, -1), rows.reshape(n, -1, 2)
+    assert idx.shape == (n, 128)
+    before = scatter_add_rows.launches
+    got = scatter_add_rows(idx, rows, spec.table_rows)
+    ref = scatter_add_rows_plain(idx, rows, spec.table_rows)
+    mags = scatter_add_rows_plain(idx, rows.abs(), spec.table_rows)
+    torch.cuda.synchronize()
+    assert scatter_add_rows.launches == before + 1
+    assert ((got - ref).abs().max() / mags.max()).item() < REL_TOL
+
+
+@pytest.mark.cuda
+def test_cli_steps_at_default_width_on_card(cuda, tmp_path):
+    """A few -m nerf --error_map steps of the CLI at its default width (the
+    16-level C = 2 lg19 grid, 2 cascades at bound 2, 1024 march events) on
+    a small colmap scene on the card: every step launches K1, the losses
+    are finite, the error map moves and a checkpoint is written."""
+    import json
+
+    from PIL import Image
+
+    from laenerf_tpu_torch.data import generate_synthetic_scene, provider
+    from laenerf_tpu_torch.pipeline import cli
+    from laenerf_tpu_torch.train import Trainer
+
+    src, scene = tmp_path / "blender", tmp_path / "colmap"
+    generate_synthetic_scene(str(src), n_train=4, n_val=0, n_test=0, H=32,
+                             W=32, device=cuda)
+    (scene / "images").mkdir(parents=True)
+    tf = json.loads((src / "transforms_train.json").read_text())
+    frames = []
+    for i, fr in enumerate(tf["frames"]):
+        rgba = np.asarray(Image.open(src / (fr["file_path"] + ".png")),
+                          np.float32) / 255.0
+        rgb = rgba[..., :3] * rgba[..., 3:] + (1.0 - rgba[..., 3:])
+        name = f"images/frame_{i:03d}.png"
+        Image.fromarray((rgb * 255).astype(np.uint8)).save(scene / name)
+        frames.append({"file_path": name,
+                       "transform_matrix": fr["transform_matrix"]})
+    (scene / "transforms.json").write_text(json.dumps(
+        {"camera_angle_x": tf["camera_angle_x"], "frames": frames}))
+
+    steps, losses, k1, maps = 6, [], [], []
+    real_step = Trainer.train_one_batch
+    real_update = provider.NeRFDataset.update_error_map
+
+    def step(self, batch, has_alpha, **kw):
+        before = scatter_add_rows.launches
+        aux = real_step(self, batch, has_alpha, **kw)
+        losses.append(float(aux["loss"]))
+        k1.append(scatter_add_rows.launches - before)
+        return aux
+
+    def update(self, *a):
+        real_update(self, *a)
+        maps.append(self.error_map)
+
+    Trainer.train_one_batch, provider.NeRFDataset.update_error_map = \
+        step, update
+    try:
+        cli.main([str(scene), "--workspace", str(tmp_path / "ws"),
+                  "--iters", str(steps), "--bound", "2", "--bg_radius", "0",
+                  "--dt_gamma", "0", "--num_rays", "1024", "--error_map"])
+    finally:
+        Trainer.train_one_batch = real_step
+        provider.NeRFDataset.update_error_map = real_update
+    assert len(losses) == steps and np.isfinite(losses).all()
+    assert min(k1) >= 1
+    assert len(maps) == steps and (maps[-1] != 1.0).any()
+    assert list((tmp_path / "ws" / "checkpoints").glob("*.npz"))
