@@ -108,7 +108,19 @@ Phases, one or more lines each, tagged with the seconds since the start
      into one row: its gradients cancel).
   15. lpips: Trainer.evaluate over 2 test views with LPIPS through a
      synthetic VGG-16 npz, against the same LPIPS on the CPU.
-  16. cli: the command-line entry point (laenerf_tpu_torch.pipeline.cli.
+  16. clip: CLIP guidance on the training phase's trainer (after every
+     other phase that uses it): the ViT-B/16 tower at its published width
+     (12 x 768, 12 heads, MLP 3,072, projection 512, 224^2, patch 16;
+     random weights, no npz in the repo) on the card against the CPU (the
+     loss within 1e-5 of its terms' magnitudes sum |z_i t_i|, the image
+     gradient within 1e-4 of its largest element); 32
+     Trainer.train_one_batch_clip steps, one rand_poses camera at 64x64 (4,096
+     rays) each, a seeded [512] text embedding. Checks finite losses, a
+     moved encoder and K1 in every step; prints ms per CLIP step (median
+     after 4), the tower's forward and backward alone (CUDA events) and
+     their share of a step, and the tower's MB; then K1 on a CLIP step's
+     backward input (held to REL_TOL of the largest sum of magnitudes).
+  17. cli: the command-line entry point (laenerf_tpu_torch.pipeline.cli.
      main, in process) on a colmap-layout copy of a 17-view 100x100
      procedural scene with fern's flags (bound 2, no bg, -O, dt_gamma 0,
      density_thresh 10) and --error_map, at the CLI's own width (16-level
@@ -124,6 +136,25 @@ Phases, one or more lines each, tagged with the seconds since the start
      value on the card against the CPU within rel 1e-5), then K1 on a CLI
      step's backward input (held to REL_TOL of the largest sum of
      magnitudes) against its plain version and index_add_.
+  18. background: a fresh Trainer at the training cell's width with
+     bg_radius 4 (the background network on the 2-D 4-level C = 2 lg19
+     grid, 697,776 rows; targets on white), 64 steps on the procedural
+     scene: K1 at least twice a step (both tables), the loss falls (medians
+     of the first and last 8 steps), a 100x100 test view finite in [0, 1]
+     that equals the same rays composited on black plus (1 - weights) times
+     the network's color; then K1 on the background backward's input (a
+     1-D idx of 65,536 f32 rows of C = 2).
+  19. parallel: a one-process NCCL group (file:// rendezvous; one card
+     allows world size 1 only): from copies of the background trainer, 8
+     dp_train_steps, each from the state a train_step on the same batch
+     and noises starts from: the loss within REL_TOL of it, the gradients
+     within REL_TOL of their largest magnitude, and the parameters and EMA
+     equal, within REL_TOL of the largest magnitude, to Adam, the LR step
+     and the EMA applied to the dp step's own gradients; dp_render_image
+     within 2e-3 of render_image; K1 on a rank's shard; the group is
+     destroyed at the end.
+Every K1 site (k1_site) holds K1, and prints its plain version too,
+against the same rows summed in float64 (k1_f64).
 Then one JSON line with every kernel of the path, the nvidia-smi line, and
 the final {"ok": true, "device": ...} line.
 
@@ -149,7 +180,7 @@ import torch
 
 TRAIN_STEPS = 272
 RENDER_HW = 800
-REL_TOL = 1e-5  # K1 vs plain, f32: atomics sum in another order each run
+REL_TOL = 1e-5  # K1 against the float64 sum of its input (k1_f64)
 SOURCES = ("scatter_add.cu", "gather_probes.cu", "sorted_scatter.cu",
            "construct_probes.cu")
 # the least time of a kernel: the larger of its bytes over the memory rate
@@ -435,11 +466,28 @@ def phase_k1(card, dev, model_cfg):
             "sites": inputs}
 
 
-def k1_site(card, dev, site, idx, rows, T, what, cancels=False):
-    """K1 on one input (idx, rows into T rows), within rel REL_TOL of its
-    plain version, timed against it and against index_add_ (in turns, CUDA
-    events) beside its bound, and under the profiler; with the RED count
-    that k1_reds models. Prints one line and returns the site's entry.
+def k1_f64(idx, rows, T, precision="bf16", magnitudes=False):
+    """The sum K1 computes, in float64: each in-range row rounded as
+    `precision` says (bf16, or f32 as it is), or its |value| with
+    magnitudes, added with index_add_ on float64."""
+    C = rows.shape[-1]
+    i = idx.reshape(-1).long()
+    r = (rows.to(torch.bfloat16) if precision == "bf16" else
+         rows.float()).reshape(-1, C).double()
+    keep = (i >= 0) & (i < T)
+    r = r[keep].abs() if magnitudes else r[keep]
+    return torch.zeros((T, C), dtype=torch.float64,
+                       device=rows.device).index_add_(0, i[keep], r)
+
+
+def k1_site(card, dev, site, idx, rows, T, what, cancels=False,
+            precision="bf16"):
+    """K1 on one input (idx, rows into T rows, rounded as `precision`
+    says), and its plain version, each held against the same sum in
+    float64 (k1_f64): K1 within rel REL_TOL, both errors printed. Timed
+    against the plain version and index_add_ (in turns, CUDA events) beside
+    its bound, and under the profiler; with the RED count that k1_reds
+    models. Prints one line and returns the site's entry.
 
     The error is relative to the largest |sum|, or with `cancels` to the
     largest sum of |rows| into one table row: where a row's terms cancel
@@ -448,24 +496,29 @@ def k1_site(card, dev, site, idx, rows, T, what, cancels=False):
     from laenerf_tpu_torch.ops.scatter_add import (scatter_add_rows,
                                                    scatter_add_rows_plain)
 
-    got = scatter_add_rows(idx, rows, T)
-    ref = scatter_add_rows_plain(idx, rows, T)
+    got = scatter_add_rows(idx, rows, T, precision=precision)
+    plain = scatter_add_rows_plain(idx, rows, T, precision=precision)
     torch.cuda.synchronize()
-    err = rel_err(got, ref)
-    mags = scatter_add_rows_plain(idx, rows.abs(), T)
-    err_sum = (got - ref).abs().max().item() / (mags.max().item() + 1e-12)
-    del mags
-    if not (err_sum if cancels else err) < REL_TOL:
-        raise AssertionError(f"K1 {site}: rel err {err} (to the largest "
-                             f"sum of magnitudes {err_sum})")
+    ref = k1_f64(idx, rows, T, precision)
+    scale = (k1_f64(idx, rows, T, precision, magnitudes=True) if cancels
+             else ref.abs()).max().item() + 1e-30
+    err = (got.double() - ref).abs().max().item() / scale
+    err_plain = (plain.double() - ref).abs().max().item() / scale
+    max_abs_err = (got.double() - ref).abs().max().item()
+    del ref, plain
+    if not err < REL_TOL:
+        raise AssertionError(
+            f"K1 {site}: rel err {err} against the float64 sum (the plain "
+            f"version's {err_plain}), of the largest "
+            f"{'sum of magnitudes' if cancels else 'sum'}")
     C = rows.shape[-1]
     idx64, rows32 = idx.reshape(-1).long(), rows.reshape(-1, C).float()
 
     def k1():
-        scatter_add_rows(idx, rows, T)
+        scatter_add_rows(idx, rows, T, precision=precision)
 
     def plain():
-        scatter_add_rows_plain(idx, rows, T)
+        scatter_add_rows_plain(idx, rows, T, precision=precision)
 
     def library():
         torch.zeros((T, C), device=dev).index_add_(0, idx64, rows32)
@@ -484,24 +537,27 @@ def k1_site(card, dev, site, idx, rows, T, what, cancels=False):
     reds = k1_reds(idx, T, C)
     width = "float4" if C % 4 == 0 else ("float2" if C % 2 == 0 else
                                          "scalar")
-    phase(what, f"K1 {site}: {idx.numel()} rows x C={C} as "
-                f"{list(idx.shape)} into {T} rows, rel err {err:.2e} "
-                f"({err_sum:.2e} of the largest sum of magnitudes; held to "
-                f"{REL_TOL} on the {'second' if cancels else 'first'}), "
-                f"{reds} {width} REDs as k1_reds models them (computed "
-                f"from the input, not measured; {idx.numel() * C} "
-                f"scalar elements); K1 {ms:.4f} ms vs plain "
-                f"{plain_ms:.4f} ms, index_add_ alone {library_ms:.4f} ms, "
-                f"bound {bound_ms:.4f} ms ({bound_by}); device time under "
-                f"the profiler: K1 {dev_ms} ms (scatter_add_rows_kernel "
-                f"{kernel_ms} ms, the rest the zero-fill), index_add_ "
-                f"{dev_library_ms} ms ({card})")
+    phase(what, f"K1 {site}: {idx.numel()} rows x C={C} "
+                f"{'bf16' if precision == 'bf16' else 'f32'} as "
+                f"{list(idx.shape)} into {T} rows, rel err against the "
+                f"float64 sum: K1 {err:.2e}, plain version {err_plain:.2e} "
+                f"(of the largest "
+                f"{'sum of magnitudes' if cancels else 'sum'}; K1 held to "
+                f"{REL_TOL}), {reds} {width} REDs as k1_reds models them "
+                f"(computed from the input, not measured; "
+                f"{idx.numel() * C} scalar elements); K1 {ms:.4f} ms vs "
+                f"plain {plain_ms:.4f} ms, index_add_ alone "
+                f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
+                f"device time under the profiler: K1 {dev_ms} ms "
+                f"(scatter_add_rows_kernel {kernel_ms} ms, the rest the "
+                f"zero-fill), index_add_ {dev_library_ms} ms ({card})")
     return {"site": site, "ms": ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "device_ms": dev_ms,
             "kernel_device_ms": kernel_ms,
             "library_device_ms": dev_library_ms,
-            "max_abs_err": (got - ref).abs().max().item()}
+            "max_abs_err": max_abs_err, "rel_err": err,
+            "plain_rel_err": err_plain}
 
 
 def k1_main_path(card, dev, spec):
@@ -2234,6 +2290,403 @@ def phase_cli(card, dev, tmp):
     return launches, site
 
 
+# the CLIP phase: CLIP guidance on the training phase's trainer
+CLIP_STEPS = 32
+CLIP_HW = 64  # one 64x64 frame a step: 4,096 rays, a train step's count
+
+
+def clip_tower_check(card, dev, tower, text_z):
+    """The tower's loss and image gradient on one seeded [1, 64, 64, 3]
+    input, on the card against the CPU (f32, no TF32). The loss -(z . t)
+    of two unit vectors nearly cancels (random weights), so its error is
+    held relative to its terms' magnitudes, sum |z_i t_i|; the gradient to
+    its largest element."""
+    from laenerf_tpu_torch.models.clip_vit import (CLIPVision,
+                                                   clip_preprocess,
+                                                   clip_similarity_loss,
+                                                   clip_vision_forward)
+
+    cpu = CLIPVision(device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in tower.state_dict().items()})
+    g = torch.Generator().manual_seed(5)
+    img = torch.rand((1, CLIP_HW, CLIP_HW, 3), generator=g)
+    out = []
+    for model, d in ((tower, dev), (cpu, torch.device("cpu"))):
+        x = img.to(d).requires_grad_(True)
+        loss = clip_similarity_loss(model, x, text_z.to(d))
+        loss.backward()
+        with torch.no_grad():
+            z = clip_vision_forward(model, clip_preprocess(img.to(d)))
+        out.append((loss.item(), x.grad.cpu(), z.cpu()))
+    (loss_card, grad_card, z_card), (loss_cpu, grad_cpu, z_cpu) = out
+    t = text_z.cpu() / text_z.cpu().norm()
+    terms = (z_cpu[0] * t).abs().sum().item()
+    err_loss = abs(loss_card - loss_cpu) / terms
+    err_grad = rel_err(grad_card, grad_cpu)
+    if not (err_loss < 1e-5 and err_grad < 1e-4):
+        raise AssertionError(f"CLIP tower card vs CPU: loss {loss_card} vs "
+                             f"{loss_cpu} ({err_loss} of its terms' "
+                             f"magnitudes {terms}), image gradient rel "
+                             f"{err_grad}")
+    phase("clip", f"ViT-B/16 tower card vs CPU on one 64x64 input: loss "
+                  f"{loss_card:.9f} vs {loss_cpu:.9f}, difference "
+                  f"{abs(loss_card - loss_cpu):.2e}: {err_loss:.2e} of "
+                  f"sum |z_i t_i| = {terms:.4f} (held to 1e-5), "
+                  f"{abs(loss_card - loss_cpu) / abs(loss_cpu):.2e} of the "
+                  f"loss itself; embedding rel {rel_err(z_card, z_cpu):.2e}; "
+                  f"image gradient rel {err_grad:.2e} (held to 1e-4)")
+
+
+def phase_clip(card, dev, tr, ds):
+    """Trainer.train_one_batch_clip on the training phase's trainer:
+    ViT-B/16 at its published width with random weights (no npz in the
+    repo), a seeded [512] text embedding, one rand_poses camera at 64x64 a
+    step. Returns (K1 launches, K1's CLIP site)."""
+    from laenerf_tpu_torch.data.provider import rand_poses
+    from laenerf_tpu_torch.models import clip_vit
+    from laenerf_tpu_torch.ops.scatter_add import scatter_add_rows
+
+    tower, pretrained = clip_vit.load_clip_vision(device=dev)
+    widths = (clip_vit.LAYERS, clip_vit.WIDTH, clip_vit.HEADS,
+              clip_vit.MLP_DIM, clip_vit.EMBED_DIM, clip_vit.IMAGE_SIZE,
+              clip_vit.PATCH)
+    if widths != (12, 768, 12, 3072, 512, 224, 16) or \
+            tower.blocks["qkv_w"].shape != (12, 768, 2304):
+        raise AssertionError(f"CLIP tower not at ViT-B/16's width: {widths}")
+    mb = sum(p.numel() * p.element_size() for p in tower.parameters()) / 2**20
+    text_z = torch.randn((clip_vit.EMBED_DIM,),
+                         generator=torch.Generator().manual_seed(4)).to(dev)
+    clip_tower_check(card, dev, tower, text_z)
+
+    # the tower's forward and backward alone, on a step's 64x64 render
+    img = torch.rand((1, CLIP_HW, CLIP_HW, 3), device=dev)
+
+    def fwd():
+        x = img.detach().requires_grad_(True)
+        clip_vit.clip_similarity_loss(tower, x, text_z)
+
+    def fwd_bwd():
+        x = img.detach().requires_grad_(True)
+        clip_vit.clip_similarity_loss(tower, x, text_z).backward()
+
+    fwd_ms, fwd_bwd_ms = cuda_ms(fwd, reps=10), cuda_ms(fwd_bwd, reps=10)
+
+    T = tr.model_cfg.grid_spec.table_rows
+    rng = np.random.RandomState(6)
+    radius = float(np.linalg.norm(ds.poses[:, :3, 3], axis=-1).mean())
+    intr = np.asarray(ds.intrinsics, np.float32) * (CLIP_HW / ds.H)
+    intr[2], intr[3] = CLIP_HW / 2, CLIP_HW / 2
+    before = tr.net.encoder.detach().clone()
+    losses, step_s, k1_steps = [], [], []
+    scatter_add_rows.launches = 0
+    with k1_capture(T, nth=CLIP_STEPS // 2) as captured:
+        for _ in range(CLIP_STEPS):
+            pose = rand_poses(1, rng, radius=radius)[0]
+            n0 = scatter_add_rows.launches
+            s0 = time.perf_counter()
+            aux = tr.train_one_batch_clip(tower, text_z, pose, intr, CLIP_HW,
+                                          CLIP_HW)
+            losses.append(float(aux["loss"]))  # syncs the step
+            step_s.append(time.perf_counter() - s0)
+            k1_steps.append(scatter_add_rows.launches - n0)
+    launches = scatter_add_rows.launches
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"CLIP step: a non-finite loss {losses}")
+    if min(k1_steps) < 1:
+        raise AssertionError(f"CLIP step: a step launched no K1 {k1_steps}")
+    moved = (tr.net.encoder.detach() - before).abs().max().item()
+    if not moved > 0:
+        raise AssertionError("CLIP steps did not move the encoder")
+    step_ms = 1e3 * float(np.median(step_s[4:]))
+    phase("clip", f"{CLIP_STEPS} train_one_batch_clip steps at "
+                  f"{CLIP_HW}x{CLIP_HW} (ViT-B/16 at 12 x 768, 12 heads, "
+                  f"MLP 3072, proj 512, 224^2, patch 16; "
+                  f"{'pretrained' if pretrained else 'random'} weights, "
+                  f"{mb:.1f} MB): loss {losses[0]:.6f} -> {losses[-1]:.6f}, "
+                  f"encoder moved by up to {moved:.3e}, K1 {launches} "
+                  f"launches ({min(k1_steps)}-{max(k1_steps)} a step); "
+                  f"{step_ms:.1f} ms/step median after 4; the tower alone "
+                  f"(CUDA events, 10 reps) forward {fwd_ms:.2f} ms, backward "
+                  f"{fwd_bwd_ms - fwd_ms:.2f} ms: "
+                  f"{100 * fwd_bwd_ms / step_ms:.1f}% of a step ({card})")
+    site = k1_site(card, dev, "clip", captured["idx"], captured["rows"], T,
+                   "clip", cancels=True)
+    return launches, site
+
+
+# the background phase: a fresh trainer at the training cell's width with
+# the background network (bg_radius 4, the 2-D 4-level C = 2 lg19 grid)
+BG_STEPS = 64
+
+
+def phase_background(card, dev, tmp, ds):
+    """A fresh Trainer(bg_radius=4.0) at the training cell's width, 64
+    steps on the procedural scene, one 100^2 render. Returns (K1 launches,
+    K1's background site, the trainer)."""
+    from laenerf_tpu_torch.data import NeRFDataset
+    from laenerf_tpu_torch.data.rays import pixel_rays
+    from laenerf_tpu_torch.models import NeRFConfig, RenderConfig
+    from laenerf_tpu_torch.models.nerf import nerf_background
+    from laenerf_tpu_torch.models.renderer import render_rays_infer
+    from laenerf_tpu_torch.ops.raymarch import sph_from_ray
+    from laenerf_tpu_torch.ops.scatter_add import scatter_add_rows
+    from laenerf_tpu_torch.train import Trainer
+
+    model_cfg = NeRFConfig(bound=1.0, num_levels=8, level_dim=4,
+                           log2_hashmap_size=19, bg_radius=4.0)
+    render_cfg = RenderConfig(bound=1.0, cascades=1, grid_size=128,
+                              max_steps=256, march_iters=256,
+                              m_cap_per_ray=16, density_thresh=10.0,
+                              infer_chunk_events=16, infer_compact_factor=4)
+    # targets on white (bg_white): with the training phase's random
+    # per-pixel backgrounds the network's target would be noise (the loss
+    # then sits at that noise's variance, 1/12)
+    tr = Trainer(model_cfg, render_cfg, device=dev, lr=1e-2, iters=2000,
+                 eval_chunk=16384, workspace=f"{tmp}/ws_bg", bg_white=True)
+    T_bg = model_cfg.bg_grid_spec.table_rows
+    tr.mark_untrained(ds)
+    losses, step_s = [], []
+    scatter_add_rows.launches = 0
+    with k1_capture(T_bg, nth=BG_STEPS // 2) as captured:
+        for step in range(BG_STEPS):
+            s0 = time.perf_counter()
+            aux = tr.train_one_batch(ds.get_batch(step % len(ds)),
+                                     has_alpha=True)
+            losses.append(float(aux["loss"]))
+            step_s.append(time.perf_counter() - s0)
+    launches = scatter_add_rows.launches
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError("background: a non-finite loss")
+    if launches < 2 * BG_STEPS:
+        raise AssertionError(f"background: K1 launched {launches} times in "
+                             f"{BG_STEPS} steps (2 tables a step)")
+    first, last = float(np.median(losses[:8])), float(np.median(losses[-8:]))
+    if not last < first:
+        raise AssertionError(f"background: loss did not fall {first} -> "
+                             f"{last}")
+    # a 100^2 test view, finite in [0, 1], whose background is the
+    # network's: the frame equals the same rays composited on black (the
+    # model without its background network) plus (1 - weights) times the
+    # network's color at each ray's sphere coordinates
+    test = NeRFDataset(tmp, "test")
+    img, _ = tr.render_image(test.poses[0], test.intrinsics, test.H, test.W)
+    if not (np.isfinite(img).all() and img.min() >= 0.0
+            and img.max() <= 1.0 + 1e-5):
+        raise AssertionError(f"background render: range [{img.min()}, "
+                             f"{img.max()}] or non-finite")
+    no_bg = copy.copy(tr.ema_net)  # shares the parameters
+    no_bg.cfg = dataclasses.replace(model_cfg, bg_radius=-1.0)
+    with torch.no_grad():
+        rays_o, rays_d = pixel_rays(tr._tensor(test.poses[0]),
+                                    tr._tensor(test.intrinsics), test.H,
+                                    test.W)
+        out = render_rays_infer(tr.ema_net, tr.occ_state.occupancy, rays_o,
+                                rays_d, render_cfg=render_cfg)
+        black = render_rays_infer(no_bg, tr.occ_state.occupancy, rays_o,
+                                  rays_d, render_cfg=render_cfg,
+                                  bg_color=0.0)
+        bg = nerf_background(tr.ema_net, sph_from_ray(rays_o, rays_d, 4.0),
+                             rays_d)
+        share = (1.0 - black["weights_sum"])[:, None]
+        gap = (out["image"] - (black["image"] + share * bg)).abs().max()
+        shown = (share * (bg - 1.0).abs()).max().item()
+        ws_min = black["weights_sum"].min().item()
+    if not (gap.item() <= 1e-5 and 1.0 - ws_min > 0.05):
+        raise AssertionError(f"background: frame vs black composite plus "
+                             f"the network's color {gap.item()}, the "
+                             f"background's largest share {1.0 - ws_min}")
+    phase("background", f"{BG_STEPS} steps with bg_radius 4 (the 2-D "
+                        f"4-level C = 2 grid, {T_bg} rows): loss {first:.5f} "
+                        f"-> {last:.5f} (medians of the first/last 8), K1 "
+                        f"{launches} launches ({launches / BG_STEPS:.1f} a "
+                        f"step); {1e3 * np.median(step_s[8:]):.1f} ms/step "
+                        f"median after 8; a {test.H}x{test.W} test view in "
+                        f"[{img.min():.4f}, {img.max():.4f}], equal within "
+                        f"{gap.item():.2e} to the rays on black plus (1 - "
+                        f"weights) x the network's color (weights down to "
+                        f"{ws_min:.4f}; the network's color moves a pixel up "
+                        f"to {shown:.4f} off white) ({card})")
+    site = k1_site(card, dev, "background", captured["idx"],
+                   captured["rows"], T_bg, "background", cancels=True,
+                   precision="f32")
+    return launches, site, tr
+
+
+DP_STEPS = 8
+
+
+def _snapshot(rep):
+    """A copy of a replica's (net, ema, optimizer, scheduler) state."""
+    net, ema, opt, sched = rep
+    return ({k: v.clone() for k, v in net.state_dict().items()},
+            {k: v.clone() for k, v in ema.state_dict().items()},
+            copy.deepcopy(opt.state_dict()), sched.state_dict())
+
+
+def _restore(rep, snap):
+    net, ema, opt, sched = rep
+    net.load_state_dict(snap[0])
+    ema.load_state_dict(snap[1])
+    # a deep copy: load_state_dict keeps the moment tensors it is given
+    # where their device and dtype already fit
+    opt.load_state_dict(copy.deepcopy(snap[2]))
+    sched.load_state_dict(snap[3])
+
+
+def _grads(net):
+    return [torch.zeros_like(p) if p.grad is None else p.grad.clone()
+            for p in net.parameters()]
+
+
+def _max_gap(a, b):
+    return max((x - y).abs().max().item() for x, y in zip(a, b))
+
+
+def phase_parallel(card, dev, tr, ds, tmp):
+    """Ray data-parallelism in a one-process NCCL group (one card allows
+    world size 1 only), from copies of the background phase's trainer.
+
+    8 steps: each dp_train_step starts from the state the train_step
+    beside it (same batch, background and noises) starts from. The losses
+    agree within REL_TOL, the gradients within REL_TOL of their largest
+    magnitude, and the dp step's parameters and EMA equal those of Adam,
+    the LR step and the EMA applied to its own gradients from that state.
+    Two trajectories are not compared: K1 sums in float atomics, so two
+    train_steps from one state differ in the last bits of a few table
+    rows, and Adam (eps 1e-15) scales such differences in small gradients
+    up to a share of the learning rate; the phase prints how far two
+    8-step train_step runs drift apart. Then dp_render_image against
+    render_image. Returns (K1 launches in the dp steps, K1's rank-shard
+    site)."""
+    import torch.distributed as dist
+
+    from laenerf_tpu_torch.ops.scatter_add import scatter_add_rows
+    from laenerf_tpu_torch.parallel import (destroy_mesh, dp_render_image,
+                                            dp_train_step, make_mesh)
+    from laenerf_tpu_torch.train.trainer import (_ema_update, make_optimizer,
+                                                 train_step)
+
+    mesh = make_mesh(dev, rank=0, world_size=1,
+                     init_method=f"file://{tmp}/rendezvous")
+    try:
+        def replica():
+            net, ema = copy.deepcopy(tr.net), copy.deepcopy(tr.ema_net)
+            rep = (net, ema, *make_optimizer(net.parameters(), 1e-2,
+                                             tr.iters))
+            _restore(rep, _snapshot((tr.net, tr.ema_net, tr.optimizer,
+                                     tr.scheduler)))
+            return rep
+
+        single, dp, ref, twin = replica(), replica(), replica(), replica()
+        g = torch.Generator(device=dev).manual_seed(7)
+        T = tr.model_cfg.grid_spec.table_rows
+        occ = tr.occ_state.occupancy
+        batches = []
+        for step in range(DP_STEPS):
+            b = ds.get_batch(step % len(ds))
+            n = len(b["inds"])
+            bg = torch.rand((n, 3), generator=g, device=dev)
+            noises = torch.rand((n,), generator=g, device=dev)
+            batches.append((
+                (occ, tr._tensor(b["pose"]), tr._tensor(b["intrinsics"]),
+                 tr._tensor(b["inds"], torch.int64), tr._tensor(b["pixels"])),
+                dict(render_cfg=tr.render_cfg, ema_decay=tr.ema_decay,
+                     has_alpha=True, bg_white=tr.bg_white, H=b["H"],
+                     W=b["W"], bg=bg, noises=noises)))
+        losses = {"single": [], "dp": []}
+        gaps = {"loss": 0.0, "grad": 0.0, "update": 0.0}
+        scales = {"grad": 0.0, "param": 0.0}
+        launches = 0
+        # each step launches K1 once on the main table, the single step
+        # first: call 2 s + 1 is dp step s's
+        with k1_capture(T, nth=2 * (DP_STEPS // 2) + 1) as captured:
+            for args, kw in batches:
+                snap = _snapshot(single)
+                aux = train_step(*single, *args, **kw)
+                loss_s = aux["loss"].item()
+                grads_s = _grads(single[0])
+                _restore(dp, snap)
+                n0 = scatter_add_rows.launches
+                aux = dp_train_step(mesh, *dp, *args, **kw)
+                launches += scatter_add_rows.launches - n0
+                loss_d = aux["loss"].item()
+                grads_d = _grads(dp[0])
+                # the reference update on the dp step's gradients
+                _restore(ref, snap)
+                with torch.no_grad():
+                    for p, gd in zip(ref[0].parameters(), grads_d):
+                        p.grad = gd.clone()
+                ref[2].step()
+                ref[3].step()
+                _ema_update(ref[0], ref[1], tr.ema_decay)
+                losses["single"].append(loss_s)
+                losses["dp"].append(loss_d)
+                gaps["loss"] = max(gaps["loss"], abs(loss_d - loss_s)
+                                   / abs(loss_s))
+                gaps["grad"] = max(gaps["grad"], _max_gap(grads_d, grads_s))
+                scales["grad"] = max(scales["grad"], max(
+                    gs.abs().max().item() for gs in grads_s))
+                gaps["update"] = max(
+                    gaps["update"],
+                    _max_gap(dp[0].parameters(), ref[0].parameters()),
+                    _max_gap(dp[1].parameters(), ref[1].parameters()))
+                lrs = [[grp["lr"] for grp in rep[2].param_groups]
+                       for rep in (dp, ref)]
+                if lrs[0] != lrs[1]:
+                    raise AssertionError(f"dp_train_step: learning rates "
+                                         f"{lrs[0]} after the step, Adam "
+                                         f"and the LR step give {lrs[1]}")
+                scales["param"] = max(scales["param"], max(
+                    p.abs().max().item() for p in ref[0].parameters()))
+        for args, kw in batches:
+            train_step(*twin, *args, **kw)
+        drift = _max_gap(single[0].parameters(), twin[0].parameters())
+        if not gaps["loss"] <= REL_TOL:
+            raise AssertionError(f"dp_train_step vs train_step: losses "
+                                 f"differ by {gaps['loss']} of the loss")
+        if not gaps["grad"] <= REL_TOL * scales["grad"]:
+            raise AssertionError(f"dp_train_step vs train_step: gradients "
+                                 f"differ by {gaps['grad']} (largest "
+                                 f"magnitude {scales['grad']})")
+        if not gaps["update"] <= REL_TOL * scales["param"]:
+            raise AssertionError(f"dp_train_step: parameters or EMA differ "
+                                 f"by {gaps['update']} from Adam and the EMA "
+                                 f"on its own gradients (largest magnitude "
+                                 f"{scales['param']})")
+        if launches < DP_STEPS:
+            raise AssertionError(f"dp_train_step: K1 launched {launches} "
+                                 f"times in {DP_STEPS} steps")
+        pose, intr = ds.poses[0], ds.intrinsics
+        img1, _ = tr.render_image(pose, intr, ds.H, ds.W)
+        img_dp, _ = dp_render_image(mesh, tr.ema_net, occ, pose, intr, ds.H,
+                                    ds.W, render_cfg=tr.render_cfg)
+        gap = float(np.abs(img_dp - img1).max())
+        if not gap <= 2e-3:
+            raise AssertionError(f"dp_render_image vs render_image: {gap}")
+        phase("parallel", f"one-process {dist.get_backend()} group (world "
+                          f"size 1): {DP_STEPS} dp_train_steps, each beside "
+                          f"a train_step from the same state: losses within "
+                          f"{gaps['loss']:.3e} of each other (held to "
+                          f"{REL_TOL}), gradients within {gaps['grad']:.3e} "
+                          f"(largest magnitude {scales['grad']:.4e}, held to "
+                          f"{REL_TOL} of it), parameters and EMA within "
+                          f"{gaps['update']:.3e} of Adam and the EMA on the "
+                          f"dp step's gradients (largest magnitude "
+                          f"{scales['param']:.4f}); losses "
+                          f"{losses['dp'][0]:.6f} -> {losses['dp'][-1]:.6f}; "
+                          f"two {DP_STEPS}-step train_step runs from one "
+                          f"state drift {drift:.3e} apart (not held: K1's "
+                          f"float atomics under Adam); K1 {launches} "
+                          f"launches in the dp steps; dp_render_image vs "
+                          f"render_image at {ds.H}x{ds.W}: {gap:.2e} "
+                          f"({card})")
+        site = k1_site(card, dev, "rank_shard", captured["idx"],
+                       captured["rows"], T, "parallel", cancels=True)
+    finally:
+        destroy_mesh()
+    return launches, site
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on a GPU",
@@ -2314,11 +2767,19 @@ def main():
         phase("npr", f"K1 launches on the main path, train, recolor, style "
                      f"and NPR: {launches}")
         phase_lpips(card, tr, tmp)
+        clip_launches, clip_site = phase_clip(card, dev, tr, ds)
+        launches += clip_launches
         scatter_add_rows.launches = 0
         cli_launches, cli_site = phase_cli(card, dev, tmp)
         launches += cli_launches
         phase("cli", f"K1 launches on the main path, train, recolor, style, "
-                     f"NPR and CLI: {launches}")
+                     f"NPR, CLIP and CLI: {launches}")
+        bg_launches, bg_site, bg_tr = phase_background(card, dev, tmp, ds)
+        dp_launches, dp_site = phase_parallel(card, dev, bg_tr, ds, tmp)
+        launches += bg_launches + dp_launches
+        phase("parallel", f"K1 launches on the main path, train, recolor, "
+                          f"style, NPR, CLIP, CLI, background and "
+                          f"data-parallel: {launches}")
 
     gather_src = "laenerf_tpu_torch/csrc/gather_probes.cu"
     scatter_src = "laenerf_tpu_torch/csrc/sorted_scatter.cu"
@@ -2339,7 +2800,7 @@ def main():
         "train_step_device_ms": (None if k1_train_us is None
                                  else k1_train_us / 1e3),
         "sites": k1["sites"] + [laenerf_site, style_site, npr_site,
-                                cli_site],
+                                cli_site, clip_site, bg_site, dp_site],
     }] + [kernel_entry(name, gather_src, gather_results, gather_launches)
           for name in ("take_rows", "take_lanes", "grid_probe")]
         + [kernel_entry(name, scatter_src, scatter_results, scatter_launches)

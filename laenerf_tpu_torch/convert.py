@@ -2,11 +2,15 @@
 port's modules, and a numpy-only reader of the JAX package's checkpoints.
 
 The JAX NeRF tree (as numpy arrays) is {"encoder": [T, C], "sigma_net":
-[W...], "color_net": [W...]}; the LAENeRF tree is {"encoder": [T, C],
+[W...], "color_net": [W...]}, plus {"encoder_bg": [T_bg, 2], "bg_net":
+[W...]} for a model with a background network; the LAENeRF tree is {"encoder": [T, C],
 "weight_net": [W...], "offset_net": [W...], "palette": [K, 3]}. The JAX
 package stores MLP weights [in, out]; nn.Linear stores [out, in], so the
 weights are transposed both ways. Its VGG stacks are lists of (w [kh, kw,
-cin, cout], b) or None; the port's hold w as [cout, cin, kh, kw].
+cin, cout], b) or None; the port's hold w as [cout, cin, kh, kw]. The
+CLIP tower keeps the JAX layout (x @ w, blocks stacked on [12, ...]); its
+tree {"patch_w", ..., "ln_pre": {"w", "b"}, "blocks": {...}} maps to the
+state dict's dotted names.
 """
 
 import re
@@ -46,7 +50,10 @@ def tree_from_state_dict(sd):
 
 
 def params_from_jax(tree):
-    """JAX NeRF param tree (numpy arrays) -> NeRFNetwork state dict."""
+    """JAX NeRF param tree (numpy arrays) -> NeRFNetwork state dict (with
+    the background network's leaves where the tree has them)."""
+    if "encoder_bg" in tree:
+        return _from_jax(tree, _NETS + ("bg_net",), ("encoder", "encoder_bg"))
     return _from_jax(tree, _NETS, ("encoder",))
 
 
@@ -63,6 +70,31 @@ def laenerf_params_from_jax(tree):
 def laenerf_params_to_numpy(model):
     """LAENeRF -> JAX-layout param tree of numpy arrays."""
     return tree_from_state_dict(model.state_dict())
+
+
+def clip_params_from_jax(tree):
+    """JAX CLIP vision pytree (numpy leaves) -> CLIPVision state dict."""
+    sd = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            sd.update({f"{k}.{n}": torch.tensor(np.asarray(a, np.float32))
+                       for n, a in v.items()})
+        else:
+            sd[k] = torch.tensor(np.asarray(v, np.float32))
+    return sd
+
+
+def clip_params_to_numpy(model):
+    """CLIPVision -> the JAX package's pytree of numpy arrays."""
+    tree = {}
+    for name, v in model.state_dict().items():
+        a = v.detach().cpu().numpy()
+        if "." in name:
+            group, leaf = name.split(".", 1)
+            tree.setdefault(group, {})[leaf] = a
+        else:
+            tree[name] = a
+    return tree
 
 
 def vgg_params_from_jax(params, device="cpu"):

@@ -1,9 +1,9 @@
 """Instant-NGP-style NeRF network (counterpart of laenerf_tpu/models/nerf.py):
 hash encoding -> 2-layer sigma MLP -> trunc_exp density + geometric feature;
-SH(dir) ++ geo-feature -> 3-layer color MLP -> sigmoid.
-
-The background network (`bg_radius > 0`) needs the generic xor-hash grid,
-which is not ported yet: building such a network raises NotImplementedError.
+SH(dir) ++ geo-feature -> 3-layer color MLP -> sigmoid; with `bg_radius >
+0` a background network: a 2-D hash grid on the sphere coordinates where
+each ray leaves the background sphere (the generic grid path) ++ SH(dir)
+-> 2-layer MLP -> sigmoid.
 """
 
 import dataclasses
@@ -53,6 +53,19 @@ class NeRFConfig:
         )
 
     @property
+    def bg_grid_spec(self) -> HashGridSpec:
+        """The background's 2-D grid: 4 levels of C = 2 from 16 to 2,048,
+        at most 2^19 rows a level."""
+        return HashGridSpec.create(
+            desired_resolution=2048,
+            input_dim=2,
+            num_levels=4,
+            level_dim=2,
+            base_resolution=16,
+            log2_hashmap_size=19,
+        )
+
+    @property
     def in_dim(self) -> int:
         return self.grid_spec.output_dim
 
@@ -62,14 +75,11 @@ class NeRFConfig:
 
 
 class NeRFNetwork(nn.Module):
-    """Parameters: `encoder` [T, C] table, `sigma_net`, `color_net`."""
+    """Parameters: `encoder` [T, C] table, `sigma_net`, `color_net`; with
+    bg_radius > 0 also `encoder_bg` [T_bg, 2] and `bg_net`."""
 
     def __init__(self, cfg: NeRFConfig, *, device, generator=None):
         super().__init__()
-        if cfg.bg_radius > 0:
-            raise NotImplementedError(
-                "bg_radius > 0 needs the background network on the generic "
-                "xor-hash grid, which is not ported yet")
         self.cfg = cfg
         sigma_dims = ([cfg.in_dim] + [cfg.hidden_dim] * (cfg.num_layers - 1)
                       + [1 + cfg.geo_feat_dim])
@@ -82,6 +92,13 @@ class NeRFNetwork(nn.Module):
                                   generator=generator)
         self.color_net = mlp_init(color_dims, device=device,
                                   generator=generator)
+        if cfg.bg_radius > 0:
+            bg_dims = ([cfg.bg_grid_spec.output_dim + cfg.in_dim_dir]
+                       + [cfg.hidden_dim_bg] * (cfg.num_layers_bg - 1) + [3])
+            self.encoder_bg = nn.Parameter(hashgrid_init(
+                cfg.bg_grid_spec, device=device, generator=generator))
+            self.bg_net = mlp_init(bg_dims, device=device,
+                                   generator=generator)
 
     def forward(self, x, d, gather_table=None):
         return nerf_forward(self, x, d, gather_table=gather_table)
@@ -119,3 +136,12 @@ def nerf_forward(net: NeRFNetwork, x, d, gather_table=None):
     """x [N, 3] positions, d [N, 3] unit directions -> sigma [N], rgb [N, 3]."""
     dens = nerf_density(net, x, gather_table=gather_table)
     return dens["sigma"], nerf_color(net, d, dens["geo_feat"])
+
+
+def nerf_background(net: NeRFNetwork, sph, d):
+    """Background color [N, 3] in (0, 1) from sphere coordinates sph [N, 2]
+    in [-1, 1] (ops/raymarch.py::sph_from_ray) and unit directions d."""
+    cfg = net.cfg
+    h = hashgrid_encode(net.encoder_bg, sph, cfg.bg_grid_spec, bound=1.0)
+    h = torch.cat([sh_encode(d, cfg.sh_degree), h], dim=-1)
+    return torch.sigmoid(mlp_apply(net.bg_net, h))

@@ -25,8 +25,8 @@ from ..ops.compaction import compact_samples, gather_flat, scatter_back
 from ..ops.composite import composite_chunk, composite_rays_train
 from ..ops.raymarch import (MarchConfig, build_skip_field, make_march_event,
                             march_rays_train, near_far_from_aabb,
-                            sample_positions)
-from .nerf import NeRFNetwork, nerf_forward
+                            sample_positions, sph_from_ray)
+from .nerf import NeRFNetwork, nerf_background, nerf_forward
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,8 +80,12 @@ def _noises(N, perturb, noises, generator, device):
     return torch.rand((N,), generator=generator, device=device)
 
 
-def _background(rays_o, bg_color):
-    """Per-ray background color [N, 3] (bg_radius > 0 is not ported)."""
+def _background(net, rays_o, rays_d, bg_color):
+    """Per-ray background color [N, 3]: the background network's where the
+    model has one (bg_radius > 0), else bg_color (None: white)."""
+    if net.cfg.bg_radius > 0:
+        sph = sph_from_ray(rays_o, rays_d, net.cfg.bg_radius)
+        return nerf_background(net, sph, rays_d)
     if bg_color is None:
         return torch.ones_like(rays_o)
     bg = torch.as_tensor(bg_color, dtype=torch.float32, device=rays_o.device)
@@ -97,7 +101,8 @@ def render_rays_train(net: NeRFNetwork, occupancy, rays_o, rays_d, *,
       net: the NeRF network.
       occupancy: [CAS, H, H, H] uint8.
       rays_o, rays_d: [N, 3].
-      bg_color: None (white), a scalar, or [N, 3].
+      bg_color: None (white), a scalar, or [N, 3]; a model with a
+        background network (bg_radius > 0) uses the network's instead.
       noises: optional [N] march perturbation in [0, 1); drawn from
         `generator` when perturb is set and it is not given.
     Returns:
@@ -136,8 +141,8 @@ def render_rays_train(net: NeRFNetwork, occupancy, rays_o, rays_d, *,
 
     weights_sum, depth, image = composite_rays_train(
         sigmas, rgbs, dts, ts, valid_eval, march["t0"], render_cfg.t_thresh)
-    image = image + (1.0 - weights_sum)[:, None] * _background(rays_o,
-                                                               bg_color)
+    image = image + (1.0 - weights_sum)[:, None] * _background(
+        net, rays_o, rays_d, bg_color)
     return {
         "image": image,
         "depth": depth,
@@ -285,8 +290,8 @@ def render_rays_infer(net: NeRFNetwork, occupancy, rays_o, rays_d, *,
                               render_cfg.t_thresh)
         rounds += 1
 
-    image = acc["rgb"] + (1.0 - acc["ws"])[:, None] * _background(rays_o,
-                                                                  bg_color)
+    image = acc["rgb"] + (1.0 - acc["ws"])[:, None] * _background(
+        net, rays_o, rays_d, bg_color)
     return {
         "image": image,
         "depth": acc["depth"],

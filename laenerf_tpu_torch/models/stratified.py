@@ -131,7 +131,7 @@ def render_rays_stratified(net: NeRFNetwork, rays_o, rays_d, *,
     weights_sum = torch.sum(weights, -1)
     depth = torch.sum(weights * z_vals, -1)  # absolute z
     image = torch.sum(weights[..., None] * rgbs, dim=1)
-    image = image + (1.0 - weights_sum)[:, None] * _background(rays_o,
-                                                               bg_color)
+    image = image + (1.0 - weights_sum)[:, None] * _background(
+        net, rays_o, rays_d, bg_color)
     return {"image": image, "depth": depth, "weights_sum": weights_sum,
             "nears": nears[:, 0], "fars": fars[:, 0]}

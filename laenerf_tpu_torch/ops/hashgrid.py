@@ -16,8 +16,14 @@ rounds it to bf16 and adds it into the [T, C] f32 table gradient with the
 scatter-add kernel K1 (ops/scatter_add.py) — in one pass what the JAX package
 does as a scatter into its [size, 8C] view plus a fold.
 
-The generic xor-hash path (`_corner_indices`, used by the 2-D background
-grid and the TV loss) is not ported yet.
+The generic path (`_corner_indices`, the JAX package's get_grid_index
+rule: a dense strided index while the stride fits the level, the xor-
+multiply `_fast_hash` on hashed levels that overflow it, modulo the level
+size) serves every other spec: the 2-D background grid, 3-D grids without
+the octo layout and the TV loss. It gathers the 2^D corner rows of each
+(sample, level) from the table (rounded to bf16 when `gather_dtype ==
+"bf16"`) and its backward adds the rows w_c * grad_out, a 1-D idx of
+B * L * 2^D rows as the JAX package's `_gather_rows` passes it, with K1.
 """
 
 import dataclasses
@@ -111,6 +117,77 @@ def hashgrid_init(spec: HashGridSpec, *, device, generator=None):
     return t.uniform_(-1e-4, 1e-4, generator=generator)
 
 
+def _mul_u32(c, k: int):
+    """(c * k) mod 2^32 for int64 c in [0, 2^32) and a constant k < 2^32,
+    in 16-bit halves of k so no product leaves int64."""
+    lo, hi = k & 0xFFFF, k >> 16
+    return (c * lo + (((c * hi) & 0xFFFF) << 16)) & _U32
+
+
+def _fast_hash(c):
+    """XOR-multiply hash over the last axis of uint32 coordinates (int64
+    [..., D] in [0, 2^32)) -> int64 [...] in [0, 2^32)."""
+    out = torch.zeros(c.shape[:-1], dtype=torch.int64, device=c.device)
+    for d in range(c.shape[-1]):
+        out = out ^ _mul_u32(c[..., d], _PRIMES[d])
+    return out
+
+
+def _corner_indices(spec: HashGridSpec, level: int, c):
+    """Global table rows of integer corner coordinates c (int64 [..., D],
+    the int32 -> uint32 cast already applied) at one level: the dense
+    strided index while the running stride fits the level, fast_hash on
+    hashed levels that overflow it, modulo the level size."""
+    D = spec.input_dim
+    res = spec.level_resolutions[level]
+    size = spec.level_sizes[level]
+    stride_base = res if spec.align_corners else res + 1
+    index = torch.zeros(c.shape[:-1], dtype=torch.int64, device=c.device)
+    stride, overflowed = 1, False
+    for d in range(D):
+        if stride <= size:
+            index = (index + _mul_u32(c[..., d], stride)) & _U32
+        stride *= stride_base
+        overflowed = overflowed or stride > size
+    if spec.gridtype == "hash" and overflowed:
+        index = _fast_hash(c)
+    return index % size + spec.level_offsets[level]
+
+
+def _as_u32(c):
+    """int32 coordinates -> the JAX package's int32 -> uint32 cast, as
+    int64 values in [0, 2^32)."""
+    return c.to(torch.int64) & _U32
+
+
+def _generic_corners(spec: HashGridSpec, u):
+    """Corner rows [B, L * 2^D] int32 and weights [B, L * 2^D] f32 of
+    normalized positions u [B, D], level-major, corner bit d the offset
+    along dimension d."""
+    D, L = spec.input_dim, spec.num_levels
+    n = 1 << D
+    bits = torch.tensor([[(k >> d) & 1 for d in range(D)] for k in range(n)],
+                        dtype=torch.int64, device=u.device)  # [2^D, D]
+    idx, w = [], []
+    for level in range(L):
+        pos = u * spec.level_scales[level] + (0.0 if spec.align_corners
+                                              else 0.5)
+        pos_grid = torch.floor(pos)
+        frac = pos - pos_grid
+        if spec.interpolation == "smoothstep":
+            frac = frac * frac * (3.0 - 2.0 * frac)
+        cc = (pos_grid.to(torch.int32)[:, None, :]
+              + bits[None].to(torch.int32))  # [B, 2^D, D] int32
+        idx.append(_corner_indices(spec, level, _as_u32(cc)))
+        f = torch.where(bits[None].bool(), frac[:, None, :],
+                        1.0 - frac[:, None, :])  # [B, 2^D, D]
+        wl = f[..., 0]
+        for d in range(1, D):
+            wl = wl * f[..., d]
+        w.append(wl)
+    return (torch.cat(idx, dim=1).to(torch.int32), torch.cat(w, dim=1))
+
+
 def _octo_strides(spec: HashGridSpec, level: int):
     """Per-level (sy, sz) row strides of the additive octo layout: dense
     levels keep x-major strides (1, base, base^2); hashed levels use large
@@ -149,7 +226,7 @@ def _octo_base_indices(spec: HashGridSpec, pos_grid):
     strides = torch.tensor([_octo_strides(spec, l) for l in range(L)],
                            dtype=torch.int64, device=dev)  # [L, 2]
     sizes = torch.tensor(spec.level_sizes, dtype=torch.int64, device=dev)
-    c = pos_grid.to(torch.int32).to(torch.int64) & _U32  # [B, L, 3]
+    c = _as_u32(pos_grid.to(torch.int32))  # [B, L, 3]
     idx = (c[..., 0]
            + ((c[..., 1] * strides[:, 0]) & _U32)
            + ((c[..., 2] * strides[:, 1]) & _U32)) & _U32
@@ -190,20 +267,26 @@ def _octo_corners(spec: HashGridSpec, u):
 class _HashGridGather(torch.autograd.Function):
     """Gather + interpolate with the K1 scatter-add backward.
 
-    forward(table, gather_table, idx, w, keep) -> [B, L, C]; only `table`
+    forward(table, gather_table, idx, w, keep, layout) -> [B, L, C]; idx
+    and w are [B, L, K] (K corners of each level's cell), and only `table`
     receives a gradient. `gather_table` is the table as gathered (bf16 when
-    gather_dtype is "bf16").
+    gather_dtype is "bf16"). layout "octo": the backward passes K1 the
+    corner rows as [samples, L * K] and rounds them to bf16; "generic": as
+    one 1-D idx [B * L * K], rounded to bf16 only with a bf16 gather.
     """
 
     @staticmethod
-    def forward(ctx, table, gather_table, idx, w, keep):
-        B, L, _ = idx.shape
+    def forward(ctx, table, gather_table, idx, w, keep, layout):
+        B, L, K = idx.shape
         C = gather_table.shape[1]
         vals = gather_table[idx.reshape(-1).long()].to(torch.float32)
-        out = torch.sum(w[..., None] * vals.reshape(B, L, 8, C), dim=2)
+        out = torch.sum(w[..., None] * vals.reshape(B, L, K, C), dim=2)
         out = torch.where(keep[:, None, None], out, 0.0)
         ctx.save_for_backward(idx, w, keep)
         ctx.table_rows = table.shape[0]
+        ctx.layout = layout
+        ctx.precision = ("bf16" if layout == "octo"
+                         or gather_table.dtype == torch.bfloat16 else "f32")
         return out
 
     @staticmethod
@@ -211,14 +294,20 @@ class _HashGridGather(torch.autograd.Function):
         idx, w, keep = ctx.saved_tensors
         g = torch.where(keep[:, None, None], grad_out.to(torch.float32), 0.0)
         C = g.shape[-1]
-        rows = (w[..., None] * g[:, :, None, :]).to(torch.bfloat16)
-        # [samples, levels x corners]: consecutive samples of a ray often
-        # share a coarse level's corner row, and K1 sums such runs first
-        B, L, _ = idx.shape
-        grad = scatter_add_rows(idx.reshape(B, L * 8),
-                                rows.reshape(B, L * 8, C), ctx.table_rows,
-                                precision="bf16")
-        return grad, None, None, None, None
+        rows = w[..., None] * g[:, :, None, :]
+        if ctx.precision == "bf16":
+            rows = rows.to(torch.bfloat16)
+        B, L, K = idx.shape
+        if ctx.layout == "octo":
+            # [samples, levels x corners]: consecutive samples of a ray
+            # often share a coarse level's corner row, and K1 sums such
+            # runs first
+            idx, rows = idx.reshape(B, L * K), rows.reshape(B, L * K, C)
+        else:
+            idx, rows = idx.reshape(-1), rows.reshape(-1, C)
+        grad = scatter_add_rows(idx, rows, ctx.table_rows,
+                                precision=ctx.precision)
+        return grad, None, None, None, None, None
 
 
 def hashgrid_encode(table, x, spec: HashGridSpec, bound: float = 1.0,
@@ -227,9 +316,11 @@ def hashgrid_encode(table, x, spec: HashGridSpec, bound: float = 1.0,
 
     Args:
       table: [table_rows, level_dim] f32 embedding table.
-      x: [..., 3] positions in [-bound, bound]; outside it they encode to 0.
+      x: [..., input_dim] positions in [-bound, bound]; outside it they
+        encode to 0.
         No gradient flows to x (the train path marches without gradients).
-      spec: grid configuration (octo layout, 3-D).
+      spec: grid configuration (the octo layout for a 3-D octo spec, the
+        generic one otherwise).
       bound: half side length of the domain.
       gather_table: optional table already rounded to spec.gather_dtype, so
         per-chunk render calls skip the rounding (Trainer.render_image
@@ -237,10 +328,6 @@ def hashgrid_encode(table, x, spec: HashGridSpec, bound: float = 1.0,
     Returns:
       [..., num_levels * level_dim] f32 features.
     """
-    if not spec.octo_gather or spec.input_dim != 3:
-        raise NotImplementedError(
-            "only the 3-D octo layout is ported; the generic xor-hash path "
-            "is not")
     if x.requires_grad:
         raise NotImplementedError(
             "hashgrid_encode: gradients with respect to x are not ported")
@@ -248,9 +335,44 @@ def hashgrid_encode(table, x, spec: HashGridSpec, bound: float = 1.0,
     prefix = x.shape[:-1]
     u = (x.reshape(-1, D).to(torch.float32) + bound) / (2.0 * bound)
     keep = ~torch.any((u < 0.0) | (u > 1.0), dim=-1)
-    idx, w = _octo_corners(spec, u)
+    if spec.octo_gather and D == 3:
+        layout = "octo"
+        idx, w = _octo_corners(spec, u)
+    else:
+        layout = "generic"
+        idx, w = _generic_corners(spec, u)
+        idx, w = idx.reshape(-1, L, 1 << D), w.reshape(-1, L, 1 << D)
     if gather_table is None:
         gather_table = (table.detach().to(torch.bfloat16)
                         if spec.gather_dtype == "bf16" else table.detach())
-    out = _HashGridGather.apply(table, gather_table, idx, w, keep)
+    out = _HashGridGather.apply(table, gather_table, idx, w, keep, layout)
     return out.reshape(prefix + (L * C,))
+
+
+def hashgrid_tv_loss(table, spec: HashGridSpec, inputs=None, *,
+                     n_points: int = 65536, bound: float = 1.0,
+                     generator=None):
+    """Total-variation regulariser on the grid: for each point and level,
+    the squared difference between the anchor corner's row and each +1
+    neighbour's, summed over channels, averaged over points, summed over
+    dimensions and averaged over levels. The points are `inputs` [..., D]
+    in [-bound, bound], else n_points uniform ones drawn from `generator`.
+    Differentiable in table (a plain row gather)."""
+    D = spec.input_dim
+    if inputs is None:
+        u = torch.rand((n_points, D), generator=generator,
+                       device=table.device)
+    else:
+        u = (inputs.reshape(-1, D).to(torch.float32) + bound) / (2.0 * bound)
+    loss = 0.0
+    for level in range(spec.num_levels):
+        pos = u * spec.level_scales[level] + (0.0 if spec.align_corners
+                                              else 0.5)
+        anchor = torch.floor(pos).to(torch.int32)
+        v0 = table[_corner_indices(spec, level, _as_u32(anchor))]
+        for d in range(D):
+            nb = anchor.clone()
+            nb[:, d] += 1
+            v1 = table[_corner_indices(spec, level, _as_u32(nb))]
+            loss = loss + torch.mean(torch.sum((v0 - v1) ** 2, dim=-1))
+    return loss / spec.num_levels

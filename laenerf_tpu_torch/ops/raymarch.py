@@ -57,6 +57,21 @@ def near_far_from_aabb(rays_o, rays_d, aabb, min_near: float = 0.2):
     return near, far
 
 
+def sph_from_ray(rays_o, rays_d, radius: float):
+    """Where each ray leaves the background sphere of `radius`, as [N, 2]
+    (theta, phi) scaled to [-1, 1], y up."""
+    a = torch.sum(rays_d * rays_d, dim=-1)
+    b = torch.sum(rays_o * rays_d, dim=-1)
+    c = torch.sum(rays_o * rays_o, dim=-1) - radius * radius
+    t = (-b + torch.sqrt(torch.clamp(b * b - a * c, min=0.0))) / a
+    p = rays_o + t[..., None] * rays_d
+    x, y, z = p[..., 0], p[..., 1], p[..., 2]
+    theta = torch.atan2(torch.sqrt(x * x + z * z), y)  # [0, pi)
+    phi = torch.atan2(z, x)  # [-pi, pi)
+    return torch.stack([2.0 * theta / torch.pi - 1.0, phi / torch.pi],
+                       dim=-1)
+
+
 def _mip_level(x, y, z, dt, cfg: MarchConfig):
     """max(mip_from_pos, mip_from_dt) clamped to [0, cascades-1]; frexp's
     exponent equals floor(log2(v)) + 1 for v > 0."""

@@ -116,9 +116,10 @@ def build_parser():
     p.add_argument("--palette_mod", type=str, default=None,
                    help="npz with 'palette' [K,3]: user-recolored palette")
 
-    # distributed training (not ported: raises)
+    # distributed training: the process group of a torchrun launch
     p.add_argument("--multihost", action="store_true",
-                   help="multi-host data parallelism; not ported yet")
+                   help="join torch.distributed's process group from "
+                        "torchrun's environment")
 
     # mesh
     p.add_argument("--save_mesh", action="store_true")
@@ -173,11 +174,13 @@ def main(argv=None):
     opt = build_parser().parse_args(argv)
     if opt.style_layers is None:
         opt.style_layers = [10, 12, 14]
-    if opt.multihost:
-        raise NotImplementedError(
-            "--multihost: distributed training is not ported yet "
-            "(ROADMAP.md §1.10)")
     device = select_device()
+    if opt.multihost:
+        # join the process group torchrun describes (NCCL on the GPU, gloo
+        # on the CPU), as the JAX CLI's jax.distributed.initialize()
+        from ..parallel import make_mesh
+
+        device = make_mesh(device).device
 
     from ..data import NeRFDataset
     from ..train import Trainer

@@ -11,8 +11,8 @@ layout, and tensorboard scalars where tensorboardX imports.
 
 Randomness comes from one torch.Generator per Trainer (seeded by `seed`);
 every draw can be injected instead (`bg`, `noises`, occupancy `jitter`).
-The NPR fine-tune step (train_step_npr) is here too; the CLIP step is not
-ported yet.
+The NPR fine-tune step (train_step_npr) and the CLIP-guided step
+(train_step_clip) are here too.
 """
 
 import copy
@@ -77,6 +77,25 @@ def train_step(net, ema_net, optimizer, scheduler, occupancy, pose,
       aux dict: loss (0-d tensor), per_ray_error [N], n_samples [N]. The
       step's gradients stay in each parameter's .grad.
     """
+    optimizer.zero_grad(set_to_none=True)
+    loss, per_ray, out = train_loss(
+        net, occupancy, pose, intrinsics, inds, pixels,
+        render_cfg=render_cfg, has_alpha=has_alpha, bg_white=bg_white, H=H,
+        W=W, bg=bg, noises=noises, generator=generator, distill=distill,
+        depth_target=depth_target, depth_weight=depth_weight,
+        patch_lpips_fn=patch_lpips_fn, patch_size=patch_size)
+    _apply_step(net, ema_net, optimizer, scheduler, loss, ema_decay)
+    return {"loss": loss.detach(), "per_ray_error": per_ray.detach(),
+            "n_samples": out["n_samples"]}
+
+
+def train_loss(net, occupancy, pose, intrinsics, inds, pixels, *,
+               render_cfg: RenderConfig, has_alpha: bool, bg_white: bool,
+               H: int, W: int, bg=None, noises=None, generator=None,
+               distill: bool = False, depth_target=None,
+               depth_weight: float = 1e-3, patch_lpips_fn=None,
+               patch_size: int = 1):
+    """train_step's forward: (loss, per_ray [N], the render's outputs)."""
     rays_o, rays_d = get_rays(pose, intrinsics, inds, H, W)
     N = inds.shape[0]
     if has_alpha and not bg_white:
@@ -89,7 +108,6 @@ def train_step(net, ema_net, optimizer, scheduler, occupancy, pose,
     else:
         gt = pixels[:, :3]
 
-    optimizer.zero_grad(set_to_none=True)
     out = render_rays_train(net, occupancy, rays_o, rays_d,
                             render_cfg=render_cfg, bg_color=bg, perturb=True,
                             noises=noises, generator=generator)
@@ -103,9 +121,7 @@ def train_step(net, ema_net, optimizer, scheduler, occupancy, pose,
         ps = patch_size
         loss = loss + 1e-3 * torch.mean(patch_lpips_fn(
             out["image"].reshape(-1, ps, ps, 3), gt.reshape(-1, ps, ps, 3)))
-    _apply_step(net, ema_net, optimizer, scheduler, loss, ema_decay)
-    return {"loss": loss.detach(), "per_ray_error": per_ray.detach(),
-            "n_samples": out["n_samples"]}
+    return loss, per_ray, out
 
 
 def _apply_step(net, ema_net, optimizer, scheduler, loss, ema_decay):
@@ -113,9 +129,13 @@ def _apply_step(net, ema_net, optimizer, scheduler, loss, ema_decay):
     loss.backward()
     optimizer.step()
     scheduler.step()
-    with torch.no_grad():
-        for e, p in zip(ema_net.parameters(), net.parameters()):
-            e.mul_(ema_decay).add_(p, alpha=1.0 - ema_decay)
+    _ema_update(net, ema_net, ema_decay)
+
+
+@torch.no_grad()
+def _ema_update(net, ema_net, ema_decay):
+    for e, p in zip(ema_net.parameters(), net.parameters()):
+        e.mul_(ema_decay).add_(p, alpha=1.0 - ema_decay)
 
 
 def train_step_npr(net, ema_net, optimizer, scheduler, occupancy, pose,
@@ -155,6 +175,30 @@ def train_step_npr(net, ema_net, optimizer, scheduler, occupancy, pose,
     loss = loss + depth_weight_d * torch.mean(
         (depth_weights * (out["depth"] - (depth_target - out["nears"])))
         ** 2)
+    _apply_step(net, ema_net, optimizer, scheduler, loss, ema_decay)
+    return {"loss": loss.detach()}
+
+
+def train_step_clip(net, ema_net, optimizer, scheduler, occupancy,
+                    clip_model, text_z, pose, intrinsics, *,
+                    render_cfg: RenderConfig, ema_decay: float, H: int,
+                    W: int, noises=None, generator=None):
+    """The CLIP-guided step: render all H x W rays of one camera through
+    the training path (perturbed; white, or the background network's,
+    behind the scene) and minimise -(CLIP image embedding . text
+    embedding) through the frozen tower (models/clip_vit.py); gradients
+    reach only the NeRF. noises [H * W] as in train_step.
+    Returns aux {"loss"} (0-d tensor)."""
+    from ..models.clip_vit import clip_similarity_loss
+
+    inds = torch.arange(H * W, device=pose.device)
+    rays_o, rays_d = get_rays(pose, intrinsics, inds, H, W)
+    optimizer.zero_grad(set_to_none=True)
+    out = render_rays_train(net, occupancy, rays_o, rays_d,
+                            render_cfg=render_cfg, bg_color=None,
+                            perturb=True, noises=noises, generator=generator)
+    loss = clip_similarity_loss(clip_model, out["image"].reshape(1, H, W, 3),
+                                text_z)
     _apply_step(net, ema_net, optimizer, scheduler, loss, ema_decay)
     return {"loss": loss.detach()}
 
@@ -241,6 +285,8 @@ class Trainer:
                 f.write(msg + "\n")
 
     def _tensor(self, a, dtype=torch.float32):
+        if isinstance(a, torch.Tensor):
+            return a.to(device=self.device, dtype=dtype)
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
 
     def mark_untrained(self, dataset):
@@ -319,6 +365,24 @@ class Trainer:
             rows("depth", 1)[:, 0], rows("depth_weights", 1)[:, 0],
             render_cfg=self.render_cfg, ema_decay=self.ema_decay, H=H, W=W,
             bg=bg, noises=noises, generator=self.generator)
+        self.global_step += 1
+        return aux
+
+    def train_one_batch_clip(self, clip_model, text_z, pose, intrinsics,
+                             H: int, W: int, noises=None):
+        """One CLIP-guided step on a camera with no ground truth (such as
+        data/provider.py::rand_poses draws): clip_model from
+        models/clip_vit.py::load_clip_vision, text_z the fixed [512] text
+        embedding (train/clip_guidance.py::text_embedding, or any vector).
+        noises [H * W] are drawn from the trainer's generator unless
+        given."""
+        self.maybe_update_occupancy()
+        aux = train_step_clip(
+            self.net, self.ema_net, self.optimizer, self.scheduler,
+            self.occ_state.occupancy, clip_model, self._tensor(text_z),
+            self._tensor(pose), self._tensor(intrinsics),
+            render_cfg=self.render_cfg, ema_decay=self.ema_decay, H=H, W=W,
+            noises=noises, generator=self.generator)
         self.global_step += 1
         return aux
 

@@ -141,7 +141,9 @@ def test_device_selection(monkeypatch):
         cli.select_device()
     monkeypatch.setenv("LAENERF_PLATFORM", "cpu")
     assert cli.select_device() == torch.device("cpu")
-    with pytest.raises(NotImplementedError, match="1.10"):
+    for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(RuntimeError, match="torchrun"):
         cli.main(["unused", "--multihost"])
 
 

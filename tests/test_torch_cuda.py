@@ -932,3 +932,91 @@ def test_cli_steps_at_default_width_on_card(cuda, tmp_path):
     assert min(k1) >= 1
     assert len(maps) == steps and (maps[-1] != 1.0).any()
     assert list((tmp_path / "ws" / "checkpoints").glob("*.npz"))
+
+
+@pytest.mark.cuda
+def test_clip_tower_card_vs_cpu(cuda):
+    """ViT-B/16 at its published width: the similarity loss and the image
+    gradient on the card within 1e-5 / 1e-4 of the CPU's (f32, no TF32)."""
+    from laenerf_tpu_torch.models import clip_vit
+    from laenerf_tpu_torch.train.trainer import configure_matmul_precision
+
+    configure_matmul_precision()
+    tower = clip_vit.clip_vision_init(seed=1, device="cpu")
+    card = clip_vit.CLIPVision(device=cuda)
+    card.load_state_dict(tower.state_dict())
+    g = torch.Generator().manual_seed(2)
+    img = torch.rand((2, 48, 48, 3), generator=g)
+    tz = torch.randn((512,), generator=g)
+    out = []
+    for model, dev in ((card, cuda), (tower, torch.device("cpu"))):
+        x = img.to(dev).requires_grad_(True)
+        loss = clip_vit.clip_similarity_loss(model, x, tz.to(dev))
+        loss.backward()
+        out.append((loss.item(), x.grad.cpu()))
+    assert abs(out[0][0] - out[1][0]) <= 1e-5 * abs(out[1][0])
+    assert _rel_err(out[0][1], out[1][1]) < 1e-4
+
+
+@pytest.mark.cuda
+def test_clip_step_card_vs_cpu(cuda):
+    """One train_step_clip on a small NeRF from the same parameters and
+    noises: the loss within 1e-3 and each parameter's gradient within 2e-2
+    of its largest element (bf16 network), on the card against the CPU."""
+    from laenerf_tpu_torch.models import NeRFConfig, RenderConfig, nerf_init
+    from laenerf_tpu_torch.models import clip_vit
+    from laenerf_tpu_torch.train.trainer import (configure_matmul_precision,
+                                                 make_optimizer,
+                                                 train_step_clip)
+
+    configure_matmul_precision()
+    mcfg = NeRFConfig(num_levels=4, log2_hashmap_size=12)
+    rcfg = RenderConfig(grid_size=32, max_steps=128, march_iters=128,
+                        m_cap_per_ray=96)
+    g = torch.Generator().manual_seed(3)
+    net0 = nerf_init(mcfg, device="cpu", generator=g)
+    tower = clip_vit.clip_vision_init(seed=1, device="cpu")
+    tz = torch.randn((512,), generator=g)
+    noises = torch.rand((32 * 32,), generator=g)
+    occ = torch.ones((1, 32, 32, 32), dtype=torch.uint8)
+    pose = torch.tensor([[1.0, 0, 0, 0], [0, 1, 0, 0], [0, 0, 1, -2.0],
+                         [0, 0, 0, 1.0]])
+    intr = torch.tensor([32.0, 32.0, 16.0, 16.0])
+    res = []
+    for dev in (cuda, torch.device("cpu")):
+        net = nerf_init(mcfg, device=dev)
+        net.load_state_dict(net0.state_dict())
+        ema = nerf_init(mcfg, device=dev).requires_grad_(False)
+        model = clip_vit.CLIPVision(device=dev)
+        model.load_state_dict(tower.state_dict())
+        opt, sched = make_optimizer(net.parameters(), 1e-2, 100)
+        aux = train_step_clip(net, ema, opt, sched, occ.to(dev), model,
+                              tz.to(dev), pose.to(dev), intr.to(dev),
+                              render_cfg=rcfg, ema_decay=0.95, H=32, W=32,
+                              noises=noises.to(dev))
+        res.append((aux["loss"].item(), {n: p.grad.cpu() for n, p in
+                                         net.named_parameters()}))
+    assert abs(res[0][0] - res[1][0]) <= 1e-3 * abs(res[1][0])
+    for name, ref in res[1][1].items():
+        assert _rel_err(res[0][1][name], ref) < 2e-2, name
+
+
+@pytest.mark.cuda
+def test_background_encoder_backward_through_k1(cuda):
+    """The 2-D background grid's backward launches K1 on a 1-D idx of
+    B * 4 levels * 4 corners f32 rows, within 1e-5 of its plain version."""
+    from laenerf_tpu_torch.models import NeRFConfig
+
+    spec = NeRFConfig(bg_radius=4.0).bg_grid_spec
+    g = torch.Generator().manual_seed(4)
+    table = torch.rand((spec.table_rows, 2), generator=g) - 0.5
+    x = torch.rand((4096, 2), generator=g) * 2 - 1
+    cot = torch.randn((4096, spec.output_dim), generator=g)
+    grads = []
+    before = scatter_add_rows.launches
+    for dev in (cuda, torch.device("cpu")):
+        tt = table.to(dev).requires_grad_(True)
+        (hashgrid_encode(tt, x.to(dev), spec) * cot.to(dev)).sum().backward()
+        grads.append(tt.grad.cpu())
+    assert scatter_add_rows.launches == before + 1
+    assert _rel_err(grads[0], grads[1]) < REL_TOL

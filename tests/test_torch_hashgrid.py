@@ -123,6 +123,10 @@ def test_gather_table_hoist_and_x_grad_guard():
     assert torch.equal(a, b)
     with pytest.raises(NotImplementedError):
         thg.hashgrid_encode(t, torch.tensor(x, requires_grad=True), ts)
-    with pytest.raises(NotImplementedError):
-        thg.hashgrid_encode(t, torch.tensor(x),
-                            dataclasses.replace(ts, octo_gather=False))
+    # without the octo layout a 3-D spec takes the generic path, as in JAX
+    # (tests/test_torch_background.py holds it against JAX in full)
+    got = thg.hashgrid_encode(t, torch.tensor(x),
+                              dataclasses.replace(ts, octo_gather=False))
+    ref = jhg.hashgrid_encode(jnp.asarray(table), jnp.asarray(x),
+                              dataclasses.replace(js, octo_gather=False))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5)
