@@ -65,7 +65,7 @@ Phases, one or more lines each, tagged with the seconds since the start
      Trainer.train_one_batch steps (17 occupancy refreshes, the last one
      partial). The loss must fall, the density grid's mean must halve, and
      every step must launch K1.
-  10. render: one 800x800 frame with Trainer.render_image, and the
+  10. render: one 400x400 frame with Trainer.render_image, and the
      train-view PSNR at 100x100.
   11. profile: kernel launches and device-busy share of a few train steps,
      and K1's device time per launch inside them, and inside one train
@@ -124,14 +124,14 @@ Phases, one or more lines each, tagged with the seconds since the start
      main, in process) on a colmap-layout copy of a 17-view 100x100
      procedural scene with fern's flags (bound 2, no bg, -O, dt_gamma 0,
      density_thresh 10) and --error_map, at the CLI's own width (16-level
-     C = 2 lg19 grid, 2 cascades, 1024 march events, m_cap 32): 128 -m nerf
+     C = 2 lg19 grid, 2 cascades, 1024 march events, m_cap 32): 32 -m nerf
      steps (finite losses, K1 in every step, a moved error map, a
      checkpoint, and a falling loss, read as each batch's per-ray errors
      reweighted by 1 / p of their error-map cells: the batch loss itself
      rises as the map draws the pixels with high error; ms/step, the host's
      error-map share, occupancy, val PSNR),
      --test --save_mesh at 128^3 (11 slerp frames finite in [0, 1], the
-     video or its PNG frames, mesh.ply's vertex and face counts), 16 more
+     video or its PNG frames, mesh.ply's vertex and face counts), 4 more
      steps with --patch_size 8 and the patch-LPIPS term on (one batch's
      value on the card against the CPU within rel 1e-5), then K1 on a CLI
      step's backward input (held to REL_TOL of the largest sum of
@@ -153,6 +153,22 @@ Phases, one or more lines each, tagged with the seconds since the start
      and the EMA applied to the dp step's own gradients; dp_render_image
      within 2e-3 of render_image; K1 on a rank's shard; the group is
      destroyed at the end.
+  20. gates: the port's gate and eval scripts (laenerf_tpu_torch.scripts,
+     in process through their main) at the quality gate model's width
+     (16-level C = 2 lg19 grid, max_steps 1024, march_iters 512, m_cap 40)
+     on the lego-class scene (4 train views at 100x100, aa 2): the quality
+     gate with --eval_only (the untrained network's test PSNR), then 128
+     steps (the loss falls, K1 in every step, the test PSNR above
+     the untrained one, SSIM <= 1, 8 test frames finite in [0, 1]); the
+     recolor gate on its workspace (100 LAENeRF, 50 palette and 16
+     fine-tune steps; bg-MSE finite, and between the pre- and post-edit
+     test renders the MSE inside the exported masks above the MSE outside
+     them); render_orbit (3 frames at 64x64,
+     steps 1 and 2); EditSession on the gate's trainer (render_frame equal
+     to render_image, a click inside the bound, grow, the grow grid, the
+     selection view restoring the occupancy); morton codes on 2^20
+     coordinates and the encoder's input gradient card vs CPU; then K1 on
+     a gate step's backward input.
 Every K1 site (k1_site) holds K1, and prints its plain version too,
 against the same rows summed in float64 (k1_f64).
 Then one JSON line with every kernel of the path, the nvidia-smi line, and
@@ -179,7 +195,7 @@ import numpy as np
 import torch
 
 TRAIN_STEPS = 272
-RENDER_HW = 800
+RENDER_HW = 400  # 800 until the gates phase joined the run
 REL_TOL = 1e-5  # K1 against the float64 sum of its input (k1_f64)
 SOURCES = ("scatter_add.cu", "gather_probes.cu", "sorted_scatter.cu",
            "construct_probes.cu")
@@ -1974,11 +1990,12 @@ def phase_lpips(card, tr, tmp, views=2):
 # scripts/configs_llff/fern.sh's values, at the CLI's own model width
 # (make_configs: the 16-level C = 2 lg19 grid, 2 cascades at bound 2,
 # max_steps = march_iters = 1024, m_cap_per_ray 32). Cuts, listed in
-# PERF.md: --iters 10,000 -> 128 (the LR decay shortens with it), --scale
+# PERF.md: --iters 10,000 -> 32 (+4 with patches; the LR decay shortens
+# with it; 128 and 16 until the gates phase joined the run), --scale
 # 0.02 and --offset 0 0 1.5 (LLFF's pose units) -> 0.33 and 0 0 0, 100^2
 # frames, --mesh_resolution 256 -> 128
-CLI_STEPS = 128
-CLI_PATCH_STEPS = 16
+CLI_STEPS = 32
+CLI_PATCH_STEPS = 4
 CLI_MESH_RES = 128
 CLI_FLAGS = ["--bound", "2", "--scale", "0.33", "--offset", "0", "0", "0",
              "--bg_radius", "0", "--density_thresh", "10", "--min_near",
@@ -2122,19 +2139,25 @@ def cli_recorder(rec):
     return stack
 
 
-def cli_run(argv):
-    """One in-process CLI run with its record."""
-    from laenerf_tpu_torch.pipeline import cli
-
+def recorded_run(main, argv):
+    """One in-process run of an entry point's main(argv) with its record
+    (cli_recorder); rec["rc"] is what main returned."""
     rec = {k: [] for k in ("trainers", "loss", "step_s", "k1", "batch_s",
                            "update_s", "datasets", "render_s", "renders",
                            "cell_w", "uniform_loss")}
     rec["lpips_calls"] = 0
     s0 = time.perf_counter()
     with cli_recorder(rec):
-        cli.main(argv)
+        rec["rc"] = main(argv)
     rec["seconds"] = time.perf_counter() - s0
     return rec
+
+
+def cli_run(argv):
+    """One in-process CLI run with its record."""
+    from laenerf_tpu_torch.pipeline import cli
+
+    return recorded_run(cli.main, argv)
 
 
 def check_steps(rec, n, what):
@@ -2687,6 +2710,298 @@ def phase_parallel(card, dev, tr, ds, tmp):
     return launches, site
 
 
+# the gates phase: the port's gate and eval scripts at the quality gate
+# model's width (docs/quality_gate_r5.json: 16 levels, C = 2, lg19,
+# max_steps 1024, so march_iters 512 and m_cap_per_ray 40). Cuts, listed
+# in PERF.md: --iters 30,000 -> 128, --n_train 64 -> 4, --H 800 -> 100;
+# the recolor gate's --style_steps 10,000 -> 100, --palette_steps 1,500 ->
+# 50, --distill_steps 7,000 -> 16; render_orbit --frames 30 -> 3, --H 400
+# -> 64
+GATE_STEPS = 128  # at 64 the fine-tune still moved the background more
+                  # than the edit moved its region (PERF.md)
+GATE_MODEL = ["--num_levels", "16", "--level_dim", "2", "--max_steps",
+              "1024"]
+GATE_FLAGS = GATE_MODEL + ["--lg", "19", "--n_train", "4", "--H", "100",
+                           "--aa", "2"]
+RECOLOR_GATE_FLAGS = GATE_MODEL + [
+    "--lg", "19", "--style_steps", "100", "--palette_steps", "50",
+    "--distill_steps", "16", "--grow_iterations", "4000"]
+ORBIT_FLAGS = GATE_MODEL + ["--log2_hashmap_size", "19", "--frames", "3",
+                            "--H", "64", "--step", "1", "--step", "2"]
+
+
+def check_frames(frames, what):
+    for img in frames:
+        lo, hi = float(np.nanmin(img)), float(np.nanmax(img))
+        if not np.isfinite(img).all() or lo < 0.0 or hi > 1.0 + 1e-5:
+            raise AssertionError(f"{what}: a frame out of [0, 1]: "
+                                 f"[{lo}, {hi}]")
+
+
+def read_json(path):
+    with open(path) as f:
+        return json.load(f)
+
+
+def gate_session(card, tr, ws):
+    """EditSession on the gate's trained trainer: a frame equal to
+    render_image at the camera's pose, a click at the centre pixel, grow,
+    the grow grid, and the selection view restoring the occupancy."""
+    from laenerf_tpu_torch.data import NeRFDataset
+    from laenerf_tpu_torch.pipeline import EditSession
+
+    s = EditSession(tr, NeRFDataset(f"{ws}/scene", "train"))
+    cam = s.camera
+    img, _ = s.render_frame(downscale=8)
+    H, W = cam.H // 8, cam.W // 8
+    intr = cam.intrinsics / 8
+    intr[2], intr[3] = W / 2, H / 2
+    ref, _ = tr.render_image(cam.pose, intr, H, W)
+    gap = float(np.abs(img - ref).max())
+    if img.shape != (H, W, 3) or not gap <= 1e-6:
+        raise AssertionError(f"EditSession.render_frame: {img.shape}, "
+                             f"{gap} from render_image")
+    pt = s.click_select(cam.W // 2, cam.H // 2)
+    bound = tr.render_cfg.bound
+    if not (np.isfinite(pt).all() and np.abs(pt).max() <= bound):
+        raise AssertionError(f"click_select: {pt} (bound {bound})")
+    clicked = int(s.edit_grid.grid.sum())
+    s.grow(iterations=4000)
+    grown = int(s.edit_grid.grid.sum())
+    if not grown > clicked:
+        raise AssertionError(f"grow: {clicked} -> {grown} cells")
+    s.extract_grow_grid()
+    occ = tr.occ_state
+    density = occ.density_grid.cpu().numpy()
+    thresh = min(float(occ.mean_density), 0.01)
+    shell = s.grow_grid.grid.astype(bool)
+    # the grow grid's rule (EditGrid.grid_from_growing_queue): cells of the
+    # selection's queue whose density passes the growing threshold; the
+    # occupancy's threshold is min(mean density, 10), so a grown cell may
+    # lie outside the occupancy
+    if not shell.any() or np.any(density[shell] < thresh):
+        raise AssertionError(f"extract_grow_grid: {int(shell.sum())} cells, "
+                             f"{int((density[shell] < thresh).sum())} under "
+                             f"the threshold {thresh}")
+    outside = int((shell & (occ.occupancy.cpu().numpy() == 0)).sum())
+    before = occ.occupancy
+    kept = before.clone()
+    sel, _ = s.render_frame(downscale=8, show_selection=True)
+    if tr.occ_state.occupancy is not before \
+            or not torch.equal(tr.occ_state.occupancy, kept):
+        raise AssertionError("render_frame(show_selection=True) did not "
+                             "restore the occupancy")
+    check_frames([img, sel], "EditSession")
+    phase("gates", f"EditSession on the gate's trainer: a {W}x{H} frame "
+                   f"{gap:.1e} from render_image; the centre pixel selects "
+                   f"({', '.join(f'{v:.4f}' for v in pt)}) ({clicked} "
+                   f"cells); grow "
+                   f"4000 pops -> {grown} cells; grow grid "
+                   f"{int(shell.sum())} cells over the threshold {thresh:.4g}"
+                   f" ({outside} of them outside the occupancy); the "
+                   f"selection view restores the occupancy ({card})")
+
+
+def gate_ops_on_card(card, dev, tr):
+    """Morton codes and the encoder's input gradient at the gate's width on
+    the card, against the same calls on the CPU."""
+    from laenerf_tpu_torch.ops import hashgrid, morton
+
+    g = torch.Generator().manual_seed(11)
+    coords = torch.randint(0, 1024, (1 << 20, 3), generator=g,
+                           dtype=torch.int32)
+    coords[:2] = torch.tensor([[1023, 1023, 1023], [0, 1023, 0]])
+    codes = morton.morton3d(coords.to(dev))
+    ref = morton.morton3d(coords)
+    inv = morton.morton3d_invert(codes)
+    grid = torch.rand((8, 1 << 15), generator=g)
+    bits = morton.packbits(grid.to(dev), 0.5)
+    if not (torch.equal(codes.cpu(), ref) and torch.equal(inv.cpu(), coords)
+            and torch.equal(bits.cpu(), morton.packbits(grid, 0.5))
+            and torch.equal(morton.unpackbits(bits).cpu(),
+                            (grid > 0.5).to(torch.uint8))):
+        raise AssertionError("morton / packbits on the card differ from "
+                             "the CPU")
+
+    spec = tr.model_cfg.grid_spec
+    table = tr.net.encoder.detach()
+    x = torch.rand((16384, 3), generator=g) * 2.2 - 1.1
+    cot = torch.randn((16384, spec.output_dim), generator=g)
+    grads = []
+    for device in (dev, torch.device("cpu")):
+        xd = x.to(device).requires_grad_(True)
+        out = hashgrid.hashgrid_encode(table.to(device), xd, spec)
+        (out * cot.to(device)).sum().backward()
+        grads.append(xd.grad.cpu())
+    scale = grads[1].abs().max().item()
+    err = (grads[0] - grads[1]).abs().max().item()
+    outside = (x.abs() > 1.0).any(dim=-1)
+    if not (scale > 0 and err <= 1e-5 * scale
+            and not grads[0][outside].any()):
+        raise AssertionError(f"encoder input gradient card vs CPU: {err} "
+                             f"(largest {scale})")
+    phase("gates", f"morton3d / invert on {coords.shape[0]} coordinates "
+                   f"(0 and 1023 included) and packbits / unpackbits on "
+                   f"{grid.numel()} cells: the card equals the CPU; the "
+                   f"encoder's input gradient at the gate's width "
+                   f"({spec.num_levels} levels x C={spec.level_dim}, "
+                   f"{x.shape[0]} points, {int(outside.sum())} outside the "
+                   f"bound at 0): card vs CPU {err:.3e} of the largest "
+                   f"{scale:.4e} (held to 1e-5 of it) ({card})")
+
+
+def phase_gates(card, dev, tmp):
+    """The port's gate and eval scripts, in process through their main:
+    the quality gate at the gate model's width (its untrained network's
+    test PSNR first, --eval_only; then GATE_STEPS steps), the
+    recolor gate on its workspace, render_orbit, then EditSession on the
+    gate's trainer, Morton codes and the encoder's input gradient on the
+    card. Returns K1's launches in the scripts and K1's entry at a gate
+    step's backward input."""
+    from PIL import Image
+
+    from laenerf_tpu_torch.ops.scatter_add import scatter_add_rows
+    from laenerf_tpu_torch.scripts import quality_gate, recolor_gate
+    from laenerf_tpu_torch.scripts.eval import render_orbit
+
+    t_phase = time.perf_counter()
+    ws = f"{tmp}/gate"
+    base = ["--workspace", ws] + GATE_FLAGS
+    rec = recorded_run(quality_gate.main, base + ["--eval_only"])
+    untrained = read_json(f"{ws}/quality_gate.json")
+    model_cfg, render_cfg = quality_gate.make_configs(
+        quality_gate.build_parser().parse_args(GATE_FLAGS))
+    spec = model_cfg.grid_spec
+    T = spec.table_rows
+    if (spec.num_levels, spec.level_dim, spec.log2_hashmap_size,
+            render_cfg.max_steps, render_cfg.march_iters,
+            render_cfg.m_cap_per_ray) != (16, 2, 19, 1024, 512, 40):
+        raise AssertionError("the gate's configuration is not the gate "
+                             "model's width")
+    phase("gates", f"quality gate --eval_only on a new workspace (scene "
+                   f"generation, the untrained network's test split): "
+                   f"test PSNR "
+                   f"{untrained['test_psnr']} dB, run "
+                   f"{rec['seconds']:.1f} s; model: {spec.num_levels} levels "
+                   f"x C={spec.level_dim}, {T} table rows, max_steps "
+                   f"{render_cfg.max_steps}, march_iters "
+                   f"{render_cfg.march_iters}, m_cap_per_ray "
+                   f"{render_cfg.m_cap_per_ray}")
+
+    before = scatter_add_rows.launches
+    with k1_capture(T, nth=GATE_STEPS // 2) as captured:
+        rec = recorded_run(quality_gate.main,
+                           base + ["--iters", str(GATE_STEPS)])
+    check_steps(rec, GATE_STEPS, "quality gate")
+    q = read_json(f"{ws}/quality_gate.json")
+    first, last = (float(np.mean(v)) for v in (rec["loss"][:16],
+                                               rec["loss"][-16:]))
+    if not last < first:
+        raise AssertionError(f"quality gate loss did not fall: {first} -> "
+                             f"{last}")
+    if not q["test_psnr"] > untrained["test_psnr"]:
+        raise AssertionError(f"quality gate: test PSNR {q['test_psnr']} "
+                             f"not above the untrained network's "
+                             f"{untrained['test_psnr']}")
+    if not q["test_ssim"] <= 1.0 or rec["rc"] != 0:
+        raise AssertionError(f"quality gate: SSIM {q['test_ssim']}, exit "
+                             f"{rec['rc']}")
+    pre = rec["renders"]
+    if len(pre) != 8:
+        raise AssertionError(f"quality gate rendered {len(pre)} test views")
+    check_frames(pre, "quality gate")
+    tr = rec["trainers"][0]
+    step_ms = 1e3 * float(np.median(rec["step_s"][16:]))
+    phase("gates", f"quality gate: {GATE_STEPS} steps, loss {first:.5f} -> "
+                   f"{last:.5f} (first/last 16), {step_ms:.1f} ms/step "
+                   f"median after 16 (mean "
+                   f"{1e3 * np.mean(rec['step_s']):.1f}; loss read back each "
+                   f"step), K1 {sum(rec['k1'])} launches (at least one a "
+                   f"step); test PSNR {q['test_psnr']} dB (untrained "
+                   f"{untrained['test_psnr']}), SSIM {q['test_ssim']}, LPIPS "
+                   f"{q['test_lpips']}; {len(pre)} test frames finite in "
+                   f"[0, 1], {np.mean(rec['render_s']):.2f} s/frame "
+                   f"({q['render_s_per_frame']} in the JSON); occ_frac "
+                   f"{float(tr.occ_state.occupancy.float().mean()):.4f}; "
+                   f"run {rec['seconds']:.1f} s; device {q['device']!r}")
+
+    rargs = recolor_gate.build_parser().parse_args(RECOLOR_GATE_FLAGS)
+    n0 = scatter_add_rows.launches
+    rec = recorded_run(recolor_gate.main,
+                       ["--workspace", ws] + RECOLOR_GATE_FLAGS)
+    recolor_k1 = scatter_add_rows.launches - n0
+    r = read_json(f"{ws}/recolor_ws/recolor_gate.json")
+    steps = (f"{rargs.style_steps} LAENeRF and {rargs.distill_steps} "
+             f"fine-tune steps")
+    if rec["rc"] != 0 or recolor_k1 < rargs.style_steps + \
+            rargs.distill_steps:
+        raise AssertionError(f"recolor gate: exit {rec['rc']}, K1 "
+                             f"{recolor_k1} launches in {steps}")
+    post = rec["renders"][-8:]
+    check_frames(post, "recolor gate")
+    inside, outside = [], []
+    for i, (a, b) in enumerate(zip(post, pre)):
+        mask = np.asarray(Image.open(
+            f"{ws}/recolor_ws/masks/test/{i:03d}.png"))[..., 1] > 0
+        d2 = np.sum((a - b) ** 2, axis=-1) / 3.0
+        inside.append(d2[mask])
+        outside.append(d2[~mask])
+    in_mse = float(np.mean(np.concatenate(inside)))
+    out_mse = float(np.mean(np.concatenate(outside)))
+    # the edit changes its region more than the background; the gate's
+    # bg-MSE is against the ground truth, so it also holds the NeRF's own
+    # error after GATE_STEPS steps, and is only required to be finite
+    if not (math.isfinite(r["bg_mse"]) and in_mse > out_mse):
+        raise AssertionError(f"recolor gate: bg-MSE {r['bg_mse']}; the "
+                             f"edit's in-mask MSE {in_mse} not above its "
+                             f"MSE outside the masks {out_mse}")
+    timings = r["timings"]
+    phase("gates", f"recolor gate: bg-MSE {r['bg_mse']:.5f} (post-edit vs "
+                   f"ground truth outside the masks); between the pre- and "
+                   f"post-edit test renders, MSE {in_mse:.5f} inside the "
+                   f"masks ({sum(map(np.size, inside))} pixels) above "
+                   f"{out_mse:.5f} outside them; train PSNR after "
+                   f"{r['psnr_train_after']:.2f} dB; K1 {recolor_k1} "
+                   f"launches in {steps}; phase seconds "
+                   + ", ".join(f"{k} {v:.2f}" for k, v in timings.items())
+                   + f"; wall {r['wall_clock_s']} s, run "
+                     f"{rec['seconds']:.1f} s ({card})")
+
+    rec = recorded_run(render_orbit.main, [
+        "--workspace", ws, "--save_json", f"{ws}/orbit.json"] + ORBIT_FLAGS)
+    o = read_json(f"{ws}/orbit.json")
+    oargs = render_orbit.build_parser().parse_args(["--workspace", ws]
+                                                   + ORBIT_FLAGS)
+    if rec["rc"] != 0 or len(rec["renders"]) != oargs.frames:
+        raise AssertionError(f"render_orbit: exit {rec['rc']}, "
+                             f"{len(rec['renders'])} frames")
+    check_frames(rec["renders"], "render_orbit")
+    for step in oargs.step:
+        m = o[f"step_{step}"]
+        if not (math.isfinite(m["mse_mean"])
+                and m["n_pairs"] == oargs.frames - step):
+            raise AssertionError(f"render_orbit step {step}: {m}")
+    phase("gates", f"render_orbit: {len(rec['renders'])} frames at "
+                   f"{oargs.H}x{oargs.H}, "
+                   f"{np.mean(rec['render_s']):.2f} s/frame; consistency "
+                   f"MSE step 1 {o['step_1']['mse_mean']:.3e} "
+                   f"({o['step_1']['n_pairs']} pairs), step 2 "
+                   f"{o['step_2']['mse_mean']:.3e} "
+                   f"({o['step_2']['n_pairs']} pairs), LPIPS "
+                   f"{o['step_1']['lpips_mean']}; run {rec['seconds']:.1f} s")
+    launches = scatter_add_rows.launches - before
+
+    gate_session(card, tr, ws)
+    gate_ops_on_card(card, dev, tr)
+    if "idx" not in captured:
+        raise AssertionError("no gate backward reached K1")
+    site = k1_site(card, dev, "quality_gate", captured["idx"],
+                   captured["rows"], T, "gates", cancels=True)
+    phase("gates", f"phase {time.perf_counter() - t_phase:.1f} s; K1 "
+                   f"launches in the gate scripts {launches}")
+    return launches, site
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on a GPU",
@@ -2780,6 +3095,12 @@ def main():
         phase("parallel", f"K1 launches on the main path, train, recolor, "
                           f"style, NPR, CLIP, CLI, background and "
                           f"data-parallel: {launches}")
+        scatter_add_rows.launches = 0
+        gate_launches, gate_site = phase_gates(card, dev, tmp)
+        launches += gate_launches
+        phase("gates", f"K1 launches on the main path, train, recolor, "
+                       f"style, NPR, CLIP, CLI, background, data-parallel "
+                       f"and the gates: {launches}")
 
     gather_src = "laenerf_tpu_torch/csrc/gather_probes.cu"
     scatter_src = "laenerf_tpu_torch/csrc/sorted_scatter.cu"
@@ -2800,7 +3121,8 @@ def main():
         "train_step_device_ms": (None if k1_train_us is None
                                  else k1_train_us / 1e3),
         "sites": k1["sites"] + [laenerf_site, style_site, npr_site,
-                                cli_site, clip_site, bg_site, dp_site],
+                                cli_site, clip_site, bg_site, dp_site,
+                                gate_site],
     }] + [kernel_entry(name, gather_src, gather_results, gather_launches)
           for name in ("take_rows", "take_lanes", "grid_probe")]
         + [kernel_entry(name, scatter_src, scatter_results, scatter_launches)

@@ -3,12 +3,15 @@ laenerf_tpu/data/synthetic.py).
 
 Writes a miniature blender-format scene (transforms_{train,val,test}.json +
 RGBA pngs) by densely volume-rendering an analytic scene of colored
-constant-density spheres (or the typed primitives of the JAX package's
-lego-class scene). The ground-truth renderer runs in torch on the given
-device, the card unless the caller asks for the CPU.
+constant-density spheres, or the typed primitives of `lego_class_scene`
+(a textured base plate, thin pillars, beams and hollow shells standing in
+for nerf_synthetic/lego). The ground-truth renderer and
+`scene_density_color` run in torch on the given device, the card unless
+the caller asks for the CPU.
 """
 
 import json
+import math
 import os
 
 import numpy as np
@@ -22,6 +25,104 @@ DEFAULT_SPHERES = [
     ((-0.4, -0.25, 0.25), 0.18, (0.25, 0.35, 0.9), 60.0),
     ((0.1, -0.45, -0.35), 0.15, (0.9, 0.8, 0.2), 60.0),
 ]
+
+
+def _texture(pts, rgb, freq: float, phase: float):
+    """Procedural 3D color texture at points [N, 3] f32: the base color
+    modulated by a sinusoidal field (exercises the fine hash-grid levels
+    the way lego's decals do)."""
+    base = torch.tensor(rgb, dtype=torch.float32, device=pts.device)
+    if freq <= 0:
+        return base.expand(pts.shape[:-1] + (3,))
+    mod = 0.5 + 0.5 * torch.sin(
+        (2 * math.pi * freq) * (pts[..., 0] + 0.7 * pts[..., 1]
+                                + 0.41 * pts[..., 2]) + phase)
+    return base * (0.55 + 0.45 * mod[..., None])
+
+
+def lego_class_scene():
+    """A 'lego-class' procedural scene: a textured base plate, a lattice of
+    thin pillars, beams, and textured hollow spheres: thin geometry plus
+    high-frequency appearance, standing in for nerf_synthetic/lego (not
+    shipped). Primitives: ('box', center, half_extents, rgb, sigma, freq,
+    phase) and ('shell', center, radius, thickness, rgb, sigma, freq,
+    phase)."""
+    prims = [
+        ("box", (0.0, 0.0, -0.52), (0.62, 0.62, 0.05),
+         (0.72, 0.65, 0.35), 200.0, 4.0, 0.0),
+    ]
+    # pillar lattice (thin structures ~0.035 world units)
+    rng = np.random.RandomState(7)
+    for ix in range(-2, 3):
+        for iy in range(-2, 3):
+            if (ix + iy) % 2 == 0:
+                h = 0.18 + 0.22 * rng.rand()
+                prims.append((
+                    "box", (0.22 * ix, 0.22 * iy, -0.47 + h),
+                    (0.035, 0.035, h),
+                    (0.75, 0.25 + 0.1 * ((ix + 2) % 3), 0.2), 200.0,
+                    6.0, 0.7 * ix + iy,
+                ))
+    # cross beams
+    prims.append(("box", (0.0, 0.0, 0.1), (0.5, 0.04, 0.035),
+                  (0.25, 0.45, 0.8), 200.0, 8.0, 1.1))
+    prims.append(("box", (0.0, 0.0, 0.22), (0.04, 0.5, 0.035),
+                  (0.3, 0.75, 0.3), 200.0, 8.0, 2.3))
+    # textured hollow spheres on top (shells, so interiors prune from the
+    # occupancy grid like lego's hollow geometry)
+    prims.append(("shell", (0.25, -0.2, 0.33), 0.13, 0.045,
+                  (0.9, 0.75, 0.2), 160.0, 10.0, 0.4))
+    prims.append(("shell", (-0.28, 0.22, 0.4), 0.16, 0.045,
+                  (0.35, 0.4, 0.85), 160.0, 9.0, 2.8))
+    prims.append(("shell", (0.0, 0.0, 0.5), 0.1, 0.04,
+                  (0.85, 0.3, 0.3), 160.0, 12.0, 1.9))
+    return prims
+
+
+@torch.no_grad()
+def scene_density_color(pts, spheres=None, *, device="cuda"):
+    """Analytic scene: density [N] and color [N, 3] at points [N, 3] (an
+    array or tensor, f32), as f32 tensors on `device`.
+
+    Accepts the sphere tuples (center, radius, rgb, sigma) or the typed
+    primitives of lego_class_scene(). A point takes the largest sigma of
+    the primitives holding it and the color of the first of them; sphere
+    and shell distances are squared in f64, as the JAX package's numpy
+    version computes them."""
+    pts = torch.as_tensor(pts, dtype=torch.float32, device=device)
+    sigma = torch.zeros(pts.shape[:-1], dtype=torch.float32, device=device)
+    color = torch.zeros(pts.shape[:-1] + (3,), dtype=torch.float32,
+                        device=device)
+
+    def dist2(center):
+        d = pts.double() - torch.tensor(center, dtype=torch.float64,
+                                        device=device)
+        return d[..., 0] ** 2 + d[..., 1] ** 2 + d[..., 2] ** 2
+
+    for prim in spheres or DEFAULT_SPHERES:
+        if isinstance(prim[0], str):
+            kind = prim[0]
+            if kind == "sphere":
+                _, center, radius, rgb, s, freq, phase = prim
+                inside = dist2(center) < radius ** 2
+            elif kind == "shell":
+                _, center, radius, th, rgb, s, freq, phase = prim
+                r2 = dist2(center)
+                inside = (r2 < radius ** 2) & (r2 > (radius - th) ** 2)
+            else:  # box
+                _, center, half, rgb, s, freq, phase = prim
+                d = (pts - torch.tensor(center, dtype=torch.float32,
+                                        device=device)).abs()
+                inside = torch.all(d < torch.tensor(
+                    half, dtype=torch.float32, device=device), dim=-1)
+        else:
+            center, radius, rgb, s = prim
+            freq, phase = 0.0, 0.0
+            inside = dist2(center) < radius ** 2
+        new = inside & (sigma == 0)
+        color[new] = _texture(pts[new], rgb, freq, phase)
+        sigma = torch.where(inside, torch.clamp(sigma, min=s), sigma)
+    return sigma, color
 
 
 def _look_at_pose(eye, target=(0.0, 0.0, 0.0), up=(0.0, 0.0, 1.0)):

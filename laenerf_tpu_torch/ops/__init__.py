@@ -1,6 +1,7 @@
 from .activation import trunc_exp
 from .sh import sh_encode, sh_output_dim
 from .freq import freq_encode, freq_output_dim
+from .morton import morton3d, morton3d_invert, packbits, unpackbits
 from .scatter_add import scatter_add_rows, scatter_add_rows_plain
 from .gather import (take_rows, take_rows_plain, take_lanes, take_lanes_plain,
                      grid_probe, grid_probe_plain)

@@ -268,11 +268,17 @@ class _HashGridGather(torch.autograd.Function):
     """Gather + interpolate with the K1 scatter-add backward.
 
     forward(table, gather_table, idx, w, keep, layout) -> [B, L, C]; idx
-    and w are [B, L, K] (K corners of each level's cell), and only `table`
-    receives a gradient. `gather_table` is the table as gathered (bf16 when
-    gather_dtype is "bf16"). layout "octo": the backward passes K1 the
-    corner rows as [samples, L * K] and rounds them to bf16; "generic": as
-    one 1-D idx [B * L * K], rounded to bf16 only with a bf16 gather.
+    and w are [B, L, K] (K corners of each level's cell). `gather_table` is
+    the table as gathered (bf16 when gather_dtype is "bf16"). layout
+    "octo": the backward passes K1 the corner rows as [samples, L * K] and
+    rounds them to bf16; "generic": as one 1-D idx [B * L * K], rounded to
+    bf16 only with a bf16 gather.
+
+    `table` and `w` receive gradients. w's is the sum over channels of
+    grad_out times the gathered rows (as gathered, in f32), zero where keep
+    is false, as JAX differentiates the interpolation; only when w needs
+    it is gather_table kept and gathered again in the backward, so the
+    train path (no gradient to x) keeps and gathers nothing more.
     """
 
     @staticmethod
@@ -282,7 +288,8 @@ class _HashGridGather(torch.autograd.Function):
         vals = gather_table[idx.reshape(-1).long()].to(torch.float32)
         out = torch.sum(w[..., None] * vals.reshape(B, L, K, C), dim=2)
         out = torch.where(keep[:, None, None], out, 0.0)
-        ctx.save_for_backward(idx, w, keep)
+        ctx.save_for_backward(idx, w, keep, *(
+            (gather_table,) if ctx.needs_input_grad[3] else ()))
         ctx.table_rows = table.shape[0]
         ctx.layout = layout
         ctx.precision = ("bf16" if layout == "octo"
@@ -291,13 +298,20 @@ class _HashGridGather(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad_out):
-        idx, w, keep = ctx.saved_tensors
+        idx, w, keep, *gather_table = ctx.saved_tensors
         g = torch.where(keep[:, None, None], grad_out.to(torch.float32), 0.0)
         C = g.shape[-1]
+        B, L, K = idx.shape
+        grad_w = None
+        if ctx.needs_input_grad[3]:
+            vals = gather_table[0][idx.reshape(-1).long()].to(torch.float32)
+            grad_w = torch.sum(g[:, :, None, :] * vals.reshape(B, L, K, C),
+                               dim=-1)
+        if not ctx.needs_input_grad[0]:
+            return None, None, None, grad_w, None, None
         rows = w[..., None] * g[:, :, None, :]
         if ctx.precision == "bf16":
             rows = rows.to(torch.bfloat16)
-        B, L, K = idx.shape
         if ctx.layout == "octo":
             # [samples, levels x corners]: consecutive samples of a ray
             # often share a coarse level's corner row, and K1 sums such
@@ -307,7 +321,7 @@ class _HashGridGather(torch.autograd.Function):
             idx, rows = idx.reshape(-1), rows.reshape(-1, C)
         grad = scatter_add_rows(idx, rows, ctx.table_rows,
                                 precision=ctx.precision)
-        return grad, None, None, None, None, None
+        return grad, None, None, grad_w, None, None
 
 
 def hashgrid_encode(table, x, spec: HashGridSpec, bound: float = 1.0,
@@ -317,8 +331,9 @@ def hashgrid_encode(table, x, spec: HashGridSpec, bound: float = 1.0,
     Args:
       table: [table_rows, level_dim] f32 embedding table.
       x: [..., input_dim] positions in [-bound, bound]; outside it they
-        encode to 0.
-        No gradient flows to x (the train path marches without gradients).
+        encode to 0. With x.requires_grad the gradient flows to x through
+        the interpolation weights (floor's is zero, as in JAX), and is 0
+        outside the bound.
       spec: grid configuration (the octo layout for a 3-D octo spec, the
         generic one otherwise).
       bound: half side length of the domain.
@@ -328,9 +343,6 @@ def hashgrid_encode(table, x, spec: HashGridSpec, bound: float = 1.0,
     Returns:
       [..., num_levels * level_dim] f32 features.
     """
-    if x.requires_grad:
-        raise NotImplementedError(
-            "hashgrid_encode: gradients with respect to x are not ported")
     D, L, C = spec.input_dim, spec.num_levels, spec.level_dim
     prefix = x.shape[:-1]
     u = (x.reshape(-1, D).to(torch.float32) + bound) / (2.0 * bound)

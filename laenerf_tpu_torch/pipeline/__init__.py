@@ -1,2 +1,3 @@
 from .driver import (EditPipeline, PipelineConfig, project_points,
                      run_npr_pipeline)
+from .viewer import OrbitCamera, EditSession, launch_gui

@@ -6,6 +6,7 @@ import dataclasses
 
 import jax
 import numpy as np
+import pytest
 import torch
 
 from laenerf_tpu.models import NeRFConfig as JNeRFConfig
@@ -121,3 +122,15 @@ def tiny_scene_trainer(tmp_path, seed=51, H=24, W=24, n_train=3, steps=4):
     for step in range(steps):
         tr.train_one_batch(ds.get_batch(step % len(ds)), has_alpha=True)
     return tr, ds, test
+
+
+@pytest.fixture
+def one_thread():
+    """One intra-op thread for a test of thousands of small ops: with every
+    test worker's threads on all cores they contend (in one parallel run
+    of the suite the gates' end-to-end test took 364 s on all threads;
+    alone it takes 15 s on all and 28 s on one)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)

@@ -8,6 +8,8 @@ table gradient at 1.5e-2 relative to its max: both sides round each
 (sample, level, corner) row w_c * grad_out to bf16 and accumulate in f32,
 but JAX also rounds each row of its [size, 8C] view gradient to bf16 before
 folding it onto the table, and the port (which has no view) does not.
+The gradient to the positions at 1e-5 relative to its max (the same
+gathered rows and f32 weights on both sides).
 """
 
 import dataclasses
@@ -121,8 +123,33 @@ def test_gather_table_hoist_and_x_grad_guard():
     b = thg.hashgrid_encode(t, torch.tensor(x), ts,
                             gather_table=t.to(torch.bfloat16))
     assert torch.equal(a, b)
-    with pytest.raises(NotImplementedError):
-        thg.hashgrid_encode(t, torch.tensor(x, requires_grad=True), ts)
+    # the gradient to x against jax.grad (1e-5 of its largest magnitude)
+    # on the octo bf16 path and the generic linear and smoothstep ones;
+    # points outside the bound get 0, and the table gradient (K1's input)
+    # is the same whether or not x asks for one
+    rng = np.random.RandomState(3)
+    cot = rng.randn(*a.shape).astype(np.float32)
+    oob = np.any(np.abs(x) > 1.0, axis=-1)
+    assert oob.any() and not oob.all()
+    for jspec, tspec in [(js, ts)] + [
+            tuple(dataclasses.replace(s, octo_gather=False,
+                                      interpolation=interp)
+                  for s in (js, ts))
+            for interp in ("linear", "smoothstep")]:
+        ref = np.asarray(jax.grad(lambda p: jnp.sum(jhg.hashgrid_encode(
+            jnp.asarray(table), p, jspec) * cot))(jnp.asarray(x)))
+        xt = torch.tensor(x, requires_grad=True)
+        tables = [torch.tensor(table, requires_grad=True) for _ in range(2)]
+        for tt, xx in zip(tables, (xt, torch.tensor(x))):
+            (thg.hashgrid_encode(tt, xx, tspec) * torch.tensor(cot)).sum() \
+                .backward()
+        got = xt.grad.numpy()
+        scale = np.abs(ref).max()
+        assert scale > 0
+        err = np.abs(got - ref).max() / scale
+        assert err < 1e-5, (tspec.octo_gather, tspec.interpolation, err)
+        assert not np.any(got[oob]) and not np.any(ref[oob])
+        assert torch.equal(tables[0].grad, tables[1].grad)
     # without the octo layout a 3-D spec takes the generic path, as in JAX
     # (tests/test_torch_background.py holds it against JAX in full)
     got = thg.hashgrid_encode(t, torch.tensor(x),
