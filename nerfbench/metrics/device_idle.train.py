@@ -1,0 +1,4 @@
+"""Percent of the profiled stretch of NeRF train steps in which no
+operation ran on the card."""
+
+from nerfbench.readers import device_idle as read  # noqa: F401
