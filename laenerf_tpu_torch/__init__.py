@@ -20,8 +20,8 @@ Same layout as the JAX package:
              laenerf_tpu_torch.pipeline.cli) and the headless pipelines
              (EditPipeline.run_all for recolor and style,
              run_npr_pipeline)
-  utils/   — phase timers, palette images, PNG writing, bilinear resize,
-             colour spaces, video, density mesh export
+  utils/   — the tracer and phase timers, palette images, PNG writing,
+             bilinear resize, colour spaces, video, density mesh export
   csrc/    — CUDA C++ sources of the hand-written kernels
   perf/    — H100 microbenchmark entry points (python -m ...perf.<name>)
 

@@ -26,6 +26,7 @@ import numpy as np
 from PIL import Image
 
 from ..utils.color import srgb_to_linear
+from ..utils.timers import span
 
 
 def nerf_matrix_to_ngp(pose, scale=0.33, offset=(0, 0, 0)):
@@ -284,22 +285,23 @@ class NeRFDataset:
 
     def get_batch(self, index: int):
         """One training batch for view `index` as host numpy arrays."""
-        inds, inds_coarse = self.sample_pixel_inds(index)
-        batch = {
-            "pose": self.poses[index],
-            "intrinsics": self.intrinsics,
-            "inds": inds,
-            "index": index,
-            "H": self.H,
-            "W": self.W,
-        }
-        if self.images is not None:
-            flat = self.images[index].reshape(-1, self.images.shape[-1])
-            batch["pixels"] = flat[inds]
-        if inds_coarse is not None:
-            batch["inds_coarse"] = inds_coarse
-        if len(self.depths) > 0:  # the fine-tune's depth supervision
-            batch["depth"] = np.asarray(self.depths[index])[inds]
+        with span("data.batch"):
+            inds, inds_coarse = self.sample_pixel_inds(index)
+            batch = {
+                "pose": self.poses[index],
+                "intrinsics": self.intrinsics,
+                "inds": inds,
+                "index": index,
+                "H": self.H,
+                "W": self.W,
+            }
+            if self.images is not None:
+                flat = self.images[index].reshape(-1, self.images.shape[-1])
+                batch["pixels"] = flat[inds]
+            if inds_coarse is not None:
+                batch["inds_coarse"] = inds_coarse
+            if len(self.depths) > 0:  # the fine-tune's depth supervision
+                batch["depth"] = np.asarray(self.depths[index])[inds]
         return batch
 
     def update_error_map(self, index: int, inds_coarse, errors):

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from ..utils.images import resize_bilinear
+from ..utils.timers import count, span
 from .laenerf import (LAENeRFConfig, LAENeRFLosses, laenerf_forward_train,
                       laenerf_init, prune_palette)
 
@@ -65,31 +66,33 @@ def _crop_losses(colors, vm, batch, weights: StyleLossWeights, H, W,
                  gram_targets=None, crop_size: int = 256):
     """The crop-loss block on the crop window of the scattered
     predictions; the Gram term runs when a style network is given."""
-    _, img = scatter_crop(colors, vm, batch["inds"], H, W, crop_h, crop_w,
-                          crop_origin)
-    img_chw = torch.movedim(img, -1, 0)
-    loss = 0.0
-    if style_network is not None and weights.style_weight > 0:
-        x = resize_bilinear(img_chw, (crop_size, crop_size))
-        loss = loss + weights.style_weight * style_network.gram_loss(
-            x, gram_targets)
-    if weights.tv_weight > 0:
-        if weights.tv_depth_guide:
-            tv = LAENeRFLosses.tv_depth_weighted(
-                img_chw, batch["tv_v"], batch["tv_h"],
-                batch["cut_smooth"] if weights.smooth_trans_weight > 0
-                else None)
-        else:
-            tv = LAENeRFLosses.tv(img_chw)
-        loss = loss + weights.tv_weight * tv
-    if weights.smooth_trans_weight > 0:
-        loss = loss + weights.smooth_trans_weight * \
-            LAENeRFLosses.smooth_transition(batch["cut_gt"], img,
-                                            batch["cut_smooth"])
-    if weights.depth_disc_weight > 0:
-        loss = loss + weights.depth_disc_weight * \
-            LAENeRFLosses.depth_discontinuity(img_chw, batch["tv_v"],
-                                              batch["tv_h"])
+    with span("laenerf.crop"):
+        _, img = scatter_crop(colors, vm, batch["inds"], H, W, crop_h,
+                              crop_w, crop_origin)
+        img_chw = torch.movedim(img, -1, 0)
+        loss = 0.0
+        if style_network is not None and weights.style_weight > 0:
+            with span("laenerf.gram"):
+                x = resize_bilinear(img_chw, (crop_size, crop_size))
+                loss = loss + weights.style_weight * style_network.gram_loss(
+                    x, gram_targets)
+        if weights.tv_weight > 0:
+            if weights.tv_depth_guide:
+                tv = LAENeRFLosses.tv_depth_weighted(
+                    img_chw, batch["tv_v"], batch["tv_h"],
+                    batch["cut_smooth"] if weights.smooth_trans_weight > 0
+                    else None)
+            else:
+                tv = LAENeRFLosses.tv(img_chw)
+            loss = loss + weights.tv_weight * tv
+        if weights.smooth_trans_weight > 0:
+            loss = loss + weights.smooth_trans_weight * \
+                LAENeRFLosses.smooth_transition(batch["cut_gt"], img,
+                                                batch["cut_smooth"])
+        if weights.depth_disc_weight > 0:
+            loss = loss + weights.depth_disc_weight * \
+                LAENeRFLosses.depth_discontinuity(img_chw, batch["tv_v"],
+                                                  batch["tv_h"])
     return loss
 
 
@@ -113,29 +116,35 @@ def laenerf_train_step(model, optimizer, active, batch, *,
     valid = batch["valid"]
     n_valid = torch.clamp(torch.sum(valid), min=1)
     optimizer.zero_grad(set_to_none=True)
-    colors, w_hat, o_hat = laenerf_forward_train(
-        model, batch["x_term"], batch["dirs"], active)
-    vm = valid[:, None]
-    mse = torch.sum(((colors - batch["targets"]) ** 2) * vm) / (3 * n_valid)
-    loss = mse + LAENeRFLosses.weights(
-        w_hat, weights.weight_loss_uniform, weights.weight_loss_non_uniform,
-        valid=valid.to(torch.float32))
-    loss = loss + LAENeRFLosses.offsets(o_hat * vm, weights.offset_loss)
-    loss = loss + LAENeRFLosses.palette(
-        model.palette, active, weights.palette_loss_valid,
-        weights.palette_loss_distinct)
-    if weights.intensity_weight > 0:
-        loss = loss + weights.intensity_weight * LAENeRFLosses.intensity(
-            batch["targets"] * vm, colors * vm)
-    if past_warmup and (weights.style_weight > 0 or weights.tv_weight > 0
-                        or weights.smooth_trans_weight > 0
-                        or weights.depth_disc_weight > 0):
-        origin = batch["crop_origin"] if crop_origin is None else crop_origin
-        loss = loss + _crop_losses(colors, vm, batch, weights, H, W, crop_h,
-                                   crop_w, origin, style_network,
-                                   gram_targets, crop_size)
-    loss.backward()
-    optimizer.step()
+    with span("laenerf.forward"):
+        colors, w_hat, o_hat = laenerf_forward_train(
+            model, batch["x_term"], batch["dirs"], active)
+    with span("laenerf.loss"):
+        vm = valid[:, None]
+        mse = (torch.sum(((colors - batch["targets"]) ** 2) * vm)
+               / (3 * n_valid))
+        loss = mse + LAENeRFLosses.weights(
+            w_hat, weights.weight_loss_uniform,
+            weights.weight_loss_non_uniform, valid=valid.to(torch.float32))
+        loss = loss + LAENeRFLosses.offsets(o_hat * vm, weights.offset_loss)
+        loss = loss + LAENeRFLosses.palette(
+            model.palette, active, weights.palette_loss_valid,
+            weights.palette_loss_distinct)
+        if weights.intensity_weight > 0:
+            loss = loss + weights.intensity_weight * LAENeRFLosses.intensity(
+                batch["targets"] * vm, colors * vm)
+        if past_warmup and (weights.style_weight > 0 or weights.tv_weight > 0
+                            or weights.smooth_trans_weight > 0
+                            or weights.depth_disc_weight > 0):
+            origin = (batch["crop_origin"] if crop_origin is None
+                      else crop_origin)
+            loss = loss + _crop_losses(colors, vm, batch, weights, H, W,
+                                       crop_h, crop_w, origin, style_network,
+                                       gram_targets, crop_size)
+    with span("laenerf.backward"):
+        loss.backward()
+    with span("laenerf.optimizer"):
+        optimizer.step()
     return {"loss": loss.detach(), "mse": mse.detach()}
 
 
@@ -174,6 +183,7 @@ class LAENeRFTrainer:
             jb = {k: torch.as_tensor(a, device=self.device)
                   for k, a in v.items()
                   if isinstance(a, np.ndarray) and k != "crop_origin"}
+            count("sync.host_copy", len(jb))
             self._dev_views[i] = (jb, tuple(int(c) for c in v["crop_origin"]),
                                   float(v.get("depth_factor", 0.0)))
         return self._dev_views[i]
@@ -188,32 +198,36 @@ class LAENeRFTrainer:
             if oi >= len(order):
                 order = self.ds.epoch_indices()
                 oi = 0
-            base, origin, depth_factor = self._device_view(int(order[oi]))
-            oi += 1
-            jb = dict(base)
-            if depth_factor > 0:
-                # the x_term re-jitter along the ray
-                d = (torch.rand((jb["x_term"].shape[0],),
-                                generator=self.generator, device=self.device)
-                     - 0.5) * depth_factor
-                jb["x_term"] = base["x_term"] + d[:, None] * base["dirs"]
-            past_warmup = self.step > self.weights.warmup_iterations
-            sn = self.style_network
-            aux = laenerf_train_step(
-                self.model, self.optimizer, self.active, jb,
-                weights=self.weights, H=self.ds.H, W=self.ds.W,
-                crop_h=self.ds.crop_h, crop_w=self.ds.crop_w,
-                past_warmup=past_warmup, crop_origin=origin,
-                style_network=sn,
-                gram_targets=None if sn is None else sn.targets,
-                crop_size=self.crop_size)
-            if past_warmup and sn is not None and \
-                    self.weights.style_weight > 0:
-                self.gram_steps += 1
-            self.step += 1
+            with span("laenerf.step", step=self.step):
+                base, origin, depth_factor = self._device_view(
+                    int(order[oi]))
+                oi += 1
+                jb = dict(base)
+                if depth_factor > 0:
+                    # the x_term re-jitter along the ray
+                    d = (torch.rand((jb["x_term"].shape[0],),
+                                    generator=self.generator,
+                                    device=self.device)
+                         - 0.5) * depth_factor
+                    jb["x_term"] = base["x_term"] + d[:, None] * base["dirs"]
+                past_warmup = self.step > self.weights.warmup_iterations
+                sn = self.style_network
+                aux = laenerf_train_step(
+                    self.model, self.optimizer, self.active, jb,
+                    weights=self.weights, H=self.ds.H, W=self.ds.W,
+                    crop_h=self.ds.crop_h, crop_w=self.ds.crop_w,
+                    past_warmup=past_warmup, crop_origin=origin,
+                    style_network=sn,
+                    gram_targets=None if sn is None else sn.targets,
+                    crop_size=self.crop_size)
+                if past_warmup and sn is not None and \
+                        self.weights.style_weight > 0:
+                    self.gram_steps += 1
+                self.step += 1
             mses.append(aux["mse"])
         if not mses:
             return float("nan")
+        count("sync.mse_readback")
         vals = torch.stack(mses).tolist()
         self.mse_history.extend(vals)
         return float(np.mean(vals))

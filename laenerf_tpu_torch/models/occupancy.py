@@ -17,6 +17,8 @@ import dataclasses
 
 import torch
 
+from ..utils.timers import count
+
 
 @dataclasses.dataclass
 class OccupancyState:
@@ -151,6 +153,7 @@ def update_occupancy_partial(state: OccupancyState, density_fn, *,
         start = (state.iter_density * cap_o) % total
         win = occ_mask & (torch.remainder(rank - start, total) < cap_o)
         gidx, gmask, _ = compact_samples(win.reshape(n_cells // H, H), cap_o)
+        count("sync.occupancy_count")
         n_occ = int(gmask.sum())
         occ_flat = gidx[:n_occ]
         occ_coords = torch.stack(

@@ -26,6 +26,7 @@ from ..ops.composite import composite_chunk, composite_rays_train
 from ..ops.raymarch import (MarchConfig, build_skip_field, make_march_event,
                             march_rays_train, near_far_from_aabb,
                             sample_positions, sph_from_ray)
+from ..utils.timers import count, span
 from .nerf import NeRFNetwork, nerf_background, nerf_forward
 
 
@@ -68,6 +69,7 @@ def train_capacity(n_rays: int, render_cfg: RenderConfig) -> int:
 
 
 def _aabb(bound, device):
+    count("sync.aabb")
     return torch.tensor([-bound] * 3 + [bound] * 3, dtype=torch.float32,
                         device=device)
 
@@ -112,37 +114,45 @@ def render_rays_train(net: NeRFNetwork, occupancy, rays_o, rays_d, *,
     N = rays_o.shape[0]
     dev = rays_o.device
     cfg = render_cfg.march_cfg
-    nears, fars = near_far_from_aabb(rays_o, rays_d, _aabb(cfg.bound, dev),
-                                     render_cfg.min_near)
-    noises = _noises(N, perturb, noises, generator, dev)
-    # the march is index work: no gradient flows through it
-    with torch.no_grad():
-        march = march_rays_train(rays_o, rays_d, occupancy, nears, fars,
-                                 noises, cfg)
+    with span("render.march"):
+        nears, fars = near_far_from_aabb(
+            rays_o, rays_d, _aabb(cfg.bound, dev), render_cfg.min_near)
+        noises = _noises(N, perturb, noises, generator, dev)
+        # the march is index work: no gradient flows through it
+        with torch.no_grad():
+            march = march_rays_train(rays_o, rays_d, occupancy, nears, fars,
+                                     noises, cfg)
     ts, dts, valid = march["ts"], march["dts"], march["valid"]
     S = cfg.march_iters
 
-    xyz_flat = sample_positions(rays_o, rays_d, ts, cfg.bound).reshape(-1, 3)
-    dirs = rays_d[:, None, :].expand(N, S, 3).reshape(-1, 3)
+    with span("render.network"):
+        xyz_flat = sample_positions(rays_o, rays_d, ts,
+                                    cfg.bound).reshape(-1, 3)
+        dirs = rays_d[:, None, :].expand(N, S, 3).reshape(-1, 3)
 
-    m_cap = train_capacity(N, render_cfg)
-    gather_idx, gather_mask, dest = compact_samples(valid, m_cap)
-    n = int(gather_mask.sum())
-    idx = gather_idx[:n]
-    sigmas_c, rgbs_c = nerf_forward(net, gather_flat(xyz_flat, idx),
-                                    gather_flat(dirs, idx))
-    sigmas_c = sigmas_c * render_cfg.density_scale
-    both = scatter_back(torch.cat([sigmas_c[:, None], rgbs_c], dim=1), dest,
-                        (N, S), gather_idx=idx, gather_mask=gather_mask[:n])
+        m_cap = train_capacity(N, render_cfg)
+        gather_idx, gather_mask, dest = compact_samples(valid, m_cap)
+        count("sync.render_count")
+        n = int(gather_mask.sum())
+        count("render.samples", n)
+        idx = gather_idx[:n]
+        sigmas_c, rgbs_c = nerf_forward(net, gather_flat(xyz_flat, idx),
+                                        gather_flat(dirs, idx))
+        sigmas_c = sigmas_c * render_cfg.density_scale
+        both = scatter_back(torch.cat([sigmas_c[:, None], rgbs_c], dim=1),
+                            dest, (N, S), gather_idx=idx,
+                            gather_mask=gather_mask[:n])
     sigmas, rgbs = both[..., 0], both[..., 1:]
-    # capacity-dropped samples are a per-ray suffix: composite the prefix
-    valid_eval = valid & (dest < m_cap)
-    ray_ok = ~torch.any(valid & (dest >= m_cap), dim=1)
+    with span("render.composite"):
+        # capacity-dropped samples are a per-ray suffix: composite the prefix
+        valid_eval = valid & (dest < m_cap)
+        ray_ok = ~torch.any(valid & (dest >= m_cap), dim=1)
 
-    weights_sum, depth, image = composite_rays_train(
-        sigmas, rgbs, dts, ts, valid_eval, march["t0"], render_cfg.t_thresh)
-    image = image + (1.0 - weights_sum)[:, None] * _background(
-        net, rays_o, rays_d, bg_color)
+        weights_sum, depth, image = composite_rays_train(
+            sigmas, rgbs, dts, ts, valid_eval, march["t0"],
+            render_cfg.t_thresh)
+        image = image + (1.0 - weights_sum)[:, None] * _background(
+            net, rays_o, rays_d, bg_color)
     return {
         "image": image,
         "depth": depth,

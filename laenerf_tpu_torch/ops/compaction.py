@@ -10,6 +10,8 @@ scatters are slow); here `nonzero` does it, with the same destinations.
 
 import torch
 
+from ..utils.timers import count
+
 
 def compact_samples(valid, m_cap: int):
     """Gather/scatter indexing for compaction.
@@ -28,6 +30,7 @@ def compact_samples(valid, m_cap: int):
     pos = torch.cumsum(flat.to(torch.int64), dim=0) - 1
     keep = flat & (pos < m_cap)
     dest = torch.where(keep, pos, m_cap).reshape(valid.shape)
+    count("sync.compact_nonzero")
     src = torch.nonzero(flat).squeeze(1)[:m_cap]
     gather_idx = torch.zeros((m_cap,), dtype=torch.int64, device=valid.device)
     gather_idx[:src.shape[0]] = src

@@ -32,6 +32,7 @@ from typing import Tuple
 
 import torch
 
+from ..utils.timers import count
 from .scatter_add import scatter_add_rows
 
 _PRIMES = (1, 2654435761, 805459861, 3674653429, 2097192037, 1434869437, 2165219737)
@@ -166,6 +167,7 @@ def _generic_corners(spec: HashGridSpec, u):
     along dimension d."""
     D, L = spec.input_dim, spec.num_levels
     n = 1 << D
+    count("sync.hashgrid_consts")
     bits = torch.tensor([[(k >> d) & 1 for d in range(D)] for k in range(n)],
                         dtype=torch.int64, device=u.device)  # [2^D, D]
     idx, w = [], []
@@ -223,6 +225,7 @@ def _octo_base_indices(spec: HashGridSpec, pos_grid):
     """
     dev = pos_grid.device
     L = spec.num_levels
+    count("sync.hashgrid_consts", 2)  # strides and sizes below
     strides = torch.tensor([_octo_strides(spec, l) for l in range(L)],
                            dtype=torch.int64, device=dev)  # [L, 2]
     sizes = torch.tensor(spec.level_sizes, dtype=torch.int64, device=dev)
@@ -238,6 +241,8 @@ def _octo_corners(spec: HashGridSpec, u):
     f32 for normalized positions u [B, 3]."""
     dev = u.device
     L = spec.num_levels
+    # scales, offs, sizes, level_off and bits below
+    count("sync.hashgrid_consts", 5)
     scales = torch.tensor(spec.level_scales, dtype=torch.float32, device=dev)
     pos = (u[:, None, :] * scales[None, :, None]
            + (0.0 if spec.align_corners else 0.5))  # [B, L, 3]

@@ -15,6 +15,8 @@ import dataclasses
 
 import torch
 
+from ..utils.timers import count, span
+
 SQRT3 = 1.7320508075688772
 SKIP_LEVELS = 7  # max safe jump = 2^(SKIP_LEVELS-1) - 1 = 63 cells
 MARCH_BLOCK = 32  # events between "any ray alive" checks
@@ -145,6 +147,7 @@ def build_skip_field(occupancy, bound=None):
     # out-of-grid padding: free (0) for the top level, blocked (1) for inner
     # levels, whose boundary is interior space covered by coarser grids
     if multi:
+        count("sync.skip_edge")
         edge = torch.tensor([1] * (CAS - 1) + [0], dtype=torch.int8,
                             device=occ.device)
 
@@ -276,7 +279,8 @@ def march_rays_train(rays_o, rays_d, occupancy, nears, fars, noises,
     Returns dict: ts, dts [N, S] float32 (sample start t and dt), valid
       [N, S] bool, t0 [N] perturbed origin, n_samples [N] int32.
     """
-    skip_flat = build_skip_field(occupancy, bound=cfg.bound).reshape(-1)
+    with span("march.skip_field"):
+        skip_flat = build_skip_field(occupancy, bound=cfg.bound).reshape(-1)
     t0 = nears + torch.clamp(nears * cfg.dt_gamma, cfg.dt_min,
                              cfg.dt_max) * noises
 
@@ -287,24 +291,33 @@ def march_rays_train(rays_o, rays_d, occupancy, nears, fars, noises,
 
     ts_l, dts_l, occ_l = [], [], []
     t = t0
-    for i in range(S):
-        if i % blk == 0 and blk < S and not bool(torch.any(t < fars)):
-            break
-        t_next, (ts, dt, occ, _) = event(t)
-        done = t >= fars
-        ts_l.append(ts)
-        dts_l.append(dt)
-        occ_l.append(occ & ~done)
-        t = torch.where(done, t, t_next)
+    while len(ts_l) < S:
+        if blk < S:
+            with span("march.alive"):
+                count("sync.march_alive")
+                alive = bool(torch.any(t < fars))
+            if not alive:
+                break
+        with span("march.block", events=blk):
+            for _ in range(blk):
+                t_next, (ts, dt, occ, _) = event(t)
+                done = t >= fars
+                ts_l.append(ts)
+                dts_l.append(dt)
+                occ_l.append(occ & ~done)
+                t = torch.where(done, t, t_next)
 
     n_run = len(ts_l)
-    ts = torch.zeros((N, S), dtype=torch.float32, device=rays_o.device)
-    dts = torch.zeros_like(ts)
-    valid = torch.zeros((N, S), dtype=torch.bool, device=rays_o.device)
-    if n_run:
-        ts[:, :n_run] = torch.stack(ts_l, dim=1)
-        dts[:, :n_run] = torch.stack(dts_l, dim=1)
-        valid[:, :n_run] = torch.stack(occ_l, dim=1)
+    count("march.events", n_run)
+    count("march.slots", N * n_run)
+    with span("march.pack"):
+        ts = torch.zeros((N, S), dtype=torch.float32, device=rays_o.device)
+        dts = torch.zeros_like(ts)
+        valid = torch.zeros((N, S), dtype=torch.bool, device=rays_o.device)
+        if n_run:
+            ts[:, :n_run] = torch.stack(ts_l, dim=1)
+            dts[:, :n_run] = torch.stack(dts_l, dim=1)
+            valid[:, :n_run] = torch.stack(occ_l, dim=1)
     return {
         "ts": ts,
         "dts": dts,

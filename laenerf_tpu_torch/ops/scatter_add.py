@@ -14,6 +14,7 @@ one atomic add. `scatter_add_rows_plain` computes the same function with
 
 import torch
 
+from ..utils.timers import span
 from .cuda_build import I32, I64, P, launch
 
 _SOURCE = "scatter_add.cu"
@@ -58,14 +59,22 @@ def scatter_add_rows(idx, g, table_rows: int, *, precision: str = "bf16",
 
     On a CUDA tensor this launches K1 and counts the launch in
     `scatter_add_rows.launches`; on a CPU tensor it runs the plain version.
+    Either runs inside the tracer's span "k1", with attributes rows (idx's
+    size), C and table_rows.
     """
-    if g.device.type == "cpu":
-        return scatter_add_rows_plain(idx, g, table_rows,
-                                      precision=precision,
-                                      out_dtype=out_dtype)
+    _check_args(idx, g, table_rows, precision)
+    with span("k1", rows=idx.numel(), C=g.shape[-1], table_rows=table_rows):
+        if g.device.type == "cpu":
+            return scatter_add_rows_plain(idx, g, table_rows,
+                                          precision=precision,
+                                          out_dtype=out_dtype)
+        return _scatter_add_rows_cuda(idx, g, table_rows, precision,
+                                      out_dtype)
+
+
+def _scatter_add_rows_cuda(idx, g, table_rows, precision, out_dtype):
     if g.device.type != "cuda":
         raise ValueError(f"scatter_add_rows: unsupported device {g.device}")
-    _check_args(idx, g, table_rows, precision)
     if idx.device != g.device:
         raise ValueError("scatter_add_rows: idx and g on different devices")
     if idx.dtype != torch.int32:
@@ -80,9 +89,9 @@ def scatter_add_rows(idx, g, table_rows: int, *, precision: str = "bf16",
         name = ("scatter_add_rows_bf16" if rows.dtype == torch.bfloat16
                 else "scatter_add_rows_f32")
         # a 1-D idx says nothing of repeats, so each lane takes one row
-        span = RUN_SPAN if idx.dim() == 2 else 1
+        run_span = RUN_SPAN if idx.dim() == 2 else 1
         launch(_SOURCE, name, [P, P, P, I64, I64, I64, I32, I64, I32], idx,
-               rows, out, S, cols, Q, C, table_rows, span)
+               rows, out, S, cols, Q, C, table_rows, run_span)
         scatter_add_rows.launches += 1
     return out if out_dtype in (None, torch.float32) else out.to(out_dtype)
 

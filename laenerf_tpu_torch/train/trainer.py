@@ -30,6 +30,7 @@ from ..models.occupancy import (OccupancyState, mark_untrained_grid,
 from ..models.renderer import (RenderConfig, build_march_tables,
                                render_rays_distill, render_rays_infer,
                                render_rays_train)
+from ..utils.timers import count, span
 from .checkpoints import CheckpointManager, load_pytree
 from .metrics import LPIPSMeter, psnr_meter, ssim_meter
 
@@ -96,40 +97,46 @@ def train_loss(net, occupancy, pose, intrinsics, inds, pixels, *,
                depth_weight: float = 1e-3, patch_lpips_fn=None,
                patch_size: int = 1):
     """train_step's forward: (loss, per_ray [N], the render's outputs)."""
-    rays_o, rays_d = get_rays(pose, intrinsics, inds, H, W)
-    N = inds.shape[0]
-    if has_alpha and not bg_white:
-        if bg is None:
-            bg = torch.rand((N, 3), generator=generator, device=pose.device)
-    else:
-        bg = torch.ones((N, 3), dtype=torch.float32, device=pose.device)
-    if has_alpha:
-        gt = pixels[:, :3] * pixels[:, 3:] + bg * (1.0 - pixels[:, 3:])
-    else:
-        gt = pixels[:, :3]
+    with span("train.inputs"):
+        rays_o, rays_d = get_rays(pose, intrinsics, inds, H, W)
+        N = inds.shape[0]
+        if has_alpha and not bg_white:
+            if bg is None:
+                bg = torch.rand((N, 3), generator=generator,
+                                device=pose.device)
+        else:
+            bg = torch.ones((N, 3), dtype=torch.float32, device=pose.device)
+        if has_alpha:
+            gt = pixels[:, :3] * pixels[:, 3:] + bg * (1.0 - pixels[:, 3:])
+        else:
+            gt = pixels[:, :3]
 
     out = render_rays_train(net, occupancy, rays_o, rays_d,
                             render_cfg=render_cfg, bg_color=bg, perturb=True,
                             noises=noises, generator=generator)
-    per_ray = torch.mean((out["image"] - gt) ** 2, dim=-1)
-    loss = torch.mean(per_ray)
-    if distill and depth_target is not None:
-        dw = (depth_target > 0).to(torch.float32)
-        loss = loss + depth_weight * torch.mean(
-            ((out["depth"] - (depth_target - out["nears"])) * dw) ** 2)
-    if patch_lpips_fn is not None and patch_size > 1:
-        ps = patch_size
-        loss = loss + 1e-3 * torch.mean(patch_lpips_fn(
-            out["image"].reshape(-1, ps, ps, 3), gt.reshape(-1, ps, ps, 3)))
+    with span("render.composite"):
+        per_ray = torch.mean((out["image"] - gt) ** 2, dim=-1)
+        loss = torch.mean(per_ray)
+        if distill and depth_target is not None:
+            dw = (depth_target > 0).to(torch.float32)
+            loss = loss + depth_weight * torch.mean(
+                ((out["depth"] - (depth_target - out["nears"])) * dw) ** 2)
+        if patch_lpips_fn is not None and patch_size > 1:
+            ps = patch_size
+            loss = loss + 1e-3 * torch.mean(patch_lpips_fn(
+                out["image"].reshape(-1, ps, ps, 3),
+                gt.reshape(-1, ps, ps, 3)))
     return loss, per_ray, out
 
 
 def _apply_step(net, ema_net, optimizer, scheduler, loss, ema_decay):
     """Backward, Adam step, LR schedule step and the EMA update."""
-    loss.backward()
-    optimizer.step()
-    scheduler.step()
-    _ema_update(net, ema_net, ema_decay)
+    with span("train.backward"):
+        loss.backward()
+    with span("train.optimizer"):
+        optimizer.step()
+        scheduler.step()
+        _ema_update(net, ema_net, ema_decay)
 
 
 @torch.no_grad()
@@ -286,7 +293,10 @@ class Trainer:
 
     def _tensor(self, a, dtype=torch.float32):
         if isinstance(a, torch.Tensor):
+            if a.device.type != self.device.type:
+                count("sync.host_copy")
             return a.to(device=self.device, dtype=dtype)
+        count("sync.host_copy")
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
 
     def mark_untrained(self, dataset):
@@ -301,28 +311,33 @@ class Trainer:
     def maybe_update_occupancy(self):
         if self.global_step % self.update_interval != 0:
             return
-        self.occ_state = occ_update(
-            self.net, self.occ_state, bound=self.render_cfg.bound,
-            full=self.occ_state.iter_density < 16,
-            density_scale=self.render_cfg.density_scale,
-            density_thresh=self.render_cfg.density_thresh,
-            generator=self.generator,
-        )
+        full = self.occ_state.iter_density < 16
+        with span("occupancy.refresh", full=full):
+            self.occ_state = occ_update(
+                self.net, self.occ_state, bound=self.render_cfg.bound,
+                full=full, density_scale=self.render_cfg.density_scale,
+                density_thresh=self.render_cfg.density_thresh,
+                generator=self.generator,
+            )
 
     def _step(self, batch, has_alpha: bool, **kw):
-        self.maybe_update_occupancy()
-        aux = train_step(
-            self.net, self.ema_net, self.optimizer, self.scheduler,
-            self.occ_state.occupancy, self._tensor(batch["pose"]),
-            self._tensor(batch["intrinsics"]),
-            self._tensor(batch["inds"], torch.int64),
-            self._tensor(batch["pixels"]), render_cfg=self.render_cfg,
-            ema_decay=self.ema_decay, has_alpha=has_alpha,
-            bg_white=self.bg_white, H=batch["H"], W=batch["W"],
-            generator=self.generator, patch_lpips_fn=self.patch_lpips_fn,
-            patch_size=self.patch_size, **kw,
-        )
-        self.global_step += 1
+        with span("train.step", step=self.global_step):
+            self.maybe_update_occupancy()
+            with span("train.inputs"):
+                pose = self._tensor(batch["pose"])
+                intrinsics = self._tensor(batch["intrinsics"])
+                inds = self._tensor(batch["inds"], torch.int64)
+                pixels = self._tensor(batch["pixels"])
+            aux = train_step(
+                self.net, self.ema_net, self.optimizer, self.scheduler,
+                self.occ_state.occupancy, pose, intrinsics, inds, pixels,
+                render_cfg=self.render_cfg, ema_decay=self.ema_decay,
+                has_alpha=has_alpha, bg_white=self.bg_white, H=batch["H"],
+                W=batch["W"], generator=self.generator,
+                patch_lpips_fn=self.patch_lpips_fn,
+                patch_size=self.patch_size, **kw,
+            )
+            self.global_step += 1
         return aux
 
     def train_one_batch(self, batch, has_alpha: bool):
