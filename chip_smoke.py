@@ -7,10 +7,10 @@ Phases, one or more lines each, tagged with the seconds since the start
   1. device: requires CUDA; prints the card's name and power limit.
   2. build: compiles the CUDA sources (csrc/scatter_add.cu: K1;
      csrc/gather_probes.cu: K2-K4; csrc/sorted_scatter.cu: K5, K6;
-     csrc/construct_probes.cu: K7) with nvcc, one process per source, all
-     started together; prints the registers, shared memory and spill
-     stores of K1's, K2's, K3's, K4's and K7 k1's, k4's, k5's and k7's
-     kernels, and what cuobjdump -sass shows of the gather kernels and of
+     csrc/construct_probes.cu: K7; csrc/raymarch.cu: K8) with nvcc, one
+     process per source, all started together; prints the registers,
+     shared memory and spill stores of K1's, K2's, K3's, K4's, K7 k1's,
+     k4's, k5's and k7's and K8's kernels, and what cuobjdump -sass shows of the gather kernels and of
      K7's fill kernels (k1, k5, k7): instances with a 16-byte store and a
      16-byte load, calls such as a 64-bit division routine, and FADDs
      (k5's loop; the phase fails if k5 has none, a loop folded away).
@@ -60,17 +60,26 @@ Phases, one or more lines each, tagged with the seconds since the start
      probe_worklist, probe_worklist2 at --n 12; bisect_mosaic), with the
      launch counts of K5-K7 set to 0 before and read after; each must
      launch, and bisect_mosaic must print eight OK lines.
-  9. train: the bench configuration (L8C4 lg19, 4096-ray batches of a
+  9. march: K8 march_rays_train at the NeRF cell's march (8,192 rays of
+     one 800x800 view, 128^3, 1,024 events) on the lego-class scene's
+     occupancy (a cell set where its points have density, as a trained
+     grid's are), 4 views: equal to its plain loop (valid, n_samples and
+     t0; ts and dts bit-equal where valid, finite elsewhere); its time by
+     CUDA events and on the device against its byte bound (N x S x 9 B),
+     march_rays_train with the skip field, the plain loop's time, the
+     phase's launch count and ptxas's registers and spills of its
+     variants.
+  10. train: the bench configuration (L8C4 lg19, 4096-ray batches of a
      16-view 100x100 synthetic scene), mark_untrained, then 272
      Trainer.train_one_batch steps (17 occupancy refreshes, the last one
      partial). The loss must fall, the density grid's mean must halve, and
-     every step must launch K1.
-  10. render: one 400x400 frame with Trainer.render_image, and the
+     every step must launch K1 and K8.
+  11. render: one 400x400 frame with Trainer.render_image, and the
      train-view PSNR at 100x100.
-  11. profile: kernel launches and device-busy share of a few train steps,
+  12. profile: kernel launches and device-busy share of a few train steps,
      and K1's device time per launch inside them, and inside one train
      step at each span in turns (k1_span_turns).
-  12. recolor: the editing path on the trained NeRF (EditPipeline's
+  13. recolor: the editing path on the trained NeRF (EditPipeline's
      phases in run_all's order). First what the centre pixel of train view
      0 selects (project_points, grown 4000 pops): its termination point
      and its edit dataset over the first 4 views, for the record. Then a
@@ -87,7 +96,7 @@ Phases, one or more lines each, tagged with the seconds since the start
      index_add_, and K1's device time inside 4 more LAENeRF steps. Prints
      the phase seconds, ms per LAENeRF and fine-tune step and the bg-MSE
      outside the exported masks.
-  13. style: the style mode on the recolor phase's NeRF and region
+  14. style: the style mode on the recolor phase's NeRF and region
      (EditPipeline(mode="style") in run_all's order) at the recolor gate's
      style width: VGG-19 to index 14, style layers 10/12/14, crop_size 256,
      style_weight 130, 8 bases, style_lg 19; 300 LAENeRF steps, warm-up
@@ -99,16 +108,16 @@ Phases, one or more lines each, tagged with the seconds since the start
      after warm-up, ms per fine-tune step, the phase seconds and the Gram
      loss on the card against the CPU; then K1 on a style step's input
      against its plain version and index_add_.
-  14. npr: run_npr_pipeline at its defaults (VGG-16 to index 29,
+  15. npr: run_npr_pipeline at its defaults (VGG-16 to index 29,
      feature_size 256, 4 bases, no direction encoding) from train view 0
      with its green channel doubled; 200 LAENeRF and 32 fine-tune steps.
      Checks style_enc.npz and timings.json, the falling NPR MSE, finite
      fine-tune losses and K1 in every step; then K1 on the fine-tune
      backward's input (held to REL_TOL of the largest sum of magnitudes
      into one row: its gradients cancel).
-  15. lpips: Trainer.evaluate over 2 test views with LPIPS through a
+  16. lpips: Trainer.evaluate over 2 test views with LPIPS through a
      synthetic VGG-16 npz, against the same LPIPS on the CPU.
-  16. clip: CLIP guidance on the training phase's trainer (after every
+  17. clip: CLIP guidance on the training phase's trainer (after every
      other phase that uses it): the ViT-B/16 tower at its published width
      (12 x 768, 12 heads, MLP 3,072, projection 512, 224^2, patch 16;
      random weights, no npz in the repo) on the card against the CPU (the
@@ -120,7 +129,7 @@ Phases, one or more lines each, tagged with the seconds since the start
      after 4), the tower's forward and backward alone (CUDA events) and
      their share of a step, and the tower's MB; then K1 on a CLIP step's
      backward input (held to REL_TOL of the largest sum of magnitudes).
-  17. cli: the command-line entry point (laenerf_tpu_torch.pipeline.cli.
+  18. cli: the command-line entry point (laenerf_tpu_torch.pipeline.cli.
      main, in process) on a colmap-layout copy of a 17-view 100x100
      procedural scene with fern's flags (bound 2, no bg, -O, dt_gamma 0,
      density_thresh 10) and --error_map, at the CLI's own width (16-level
@@ -136,7 +145,7 @@ Phases, one or more lines each, tagged with the seconds since the start
      value on the card against the CPU within rel 1e-5), then K1 on a CLI
      step's backward input (held to REL_TOL of the largest sum of
      magnitudes) against its plain version and index_add_.
-  18. background: a fresh Trainer at the training cell's width with
+  19. background: a fresh Trainer at the training cell's width with
      bg_radius 4 (the background network on the 2-D 4-level C = 2 lg19
      grid, 697,776 rows; targets on white), 64 steps on the procedural
      scene: K1 at least twice a step (both tables), the loss falls (medians
@@ -144,7 +153,7 @@ Phases, one or more lines each, tagged with the seconds since the start
      that equals the same rays composited on black plus (1 - weights) times
      the network's color; then K1 on the background backward's input (a
      1-D idx of 65,536 f32 rows of C = 2).
-  19. parallel: a one-process NCCL group (file:// rendezvous; one card
+  20. parallel: a one-process NCCL group (file:// rendezvous; one card
      allows world size 1 only): from copies of the background trainer, 8
      dp_train_steps, each from the state a train_step on the same batch
      and noises starts from: the loss within REL_TOL of it, the gradients
@@ -153,7 +162,7 @@ Phases, one or more lines each, tagged with the seconds since the start
      and the EMA applied to the dp step's own gradients; dp_render_image
      within 2e-3 of render_image; K1 on a rank's shard; the group is
      destroyed at the end.
-  20. gates: the port's gate and eval scripts (laenerf_tpu_torch.scripts,
+  21. gates: the port's gate and eval scripts (laenerf_tpu_torch.scripts,
      in process through their main) at the quality gate model's width
      (16-level C = 2 lg19 grid, max_steps 1024, march_iters 512, m_cap 40)
      on the lego-class scene (4 train views at 100x100, aa 2): the quality
@@ -172,7 +181,10 @@ Phases, one or more lines each, tagged with the seconds since the start
 Every K1 site (k1_site) holds K1, and prints its plain version too,
 against the same rows summed in float64 (k1_f64).
 Then one JSON line with every kernel of the path, the nvidia-smi line, and
-the final {"ok": true, "device": ...} line.
+the final {"ok": true, "device": ...} line. K1's and K8's launches in that
+line are those of the main-path phases (train and render, recolor, style,
+NPR, CLIP, CLI, background, parallel and gates), counted phase by phase;
+the probe and march phases' own launches are in their lines.
 
 Imports torch and the port only, never JAX.
 """
@@ -198,7 +210,7 @@ TRAIN_STEPS = 272
 RENDER_HW = 400  # 800 until the gates phase joined the run
 REL_TOL = 1e-5  # K1 against the float64 sum of its input (k1_f64)
 SOURCES = ("scatter_add.cu", "gather_probes.cu", "sorted_scatter.cu",
-           "construct_probes.cu")
+           "construct_probes.cu", "raymarch.cu")
 # the least time of a kernel: the larger of its bytes over the memory rate
 # and its operations over the peak rate (NVIDIA's H100 SXM data sheet, 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -209,7 +221,8 @@ SECTOR = 32  # bytes: the unit in which L2 and HBM serve a random read
 REPORTED_KERNELS = ("take_rows_kernel", "take_lanes_kernel",
                     "grid_probe_kernel", "copy_1d_kernel",
                     "scatter_add_rows_kernel", "prefetch_write_kernel",
-                    "dynamic_loop_kernel", "iota_rows_kernel")
+                    "dynamic_loop_kernel", "iota_rows_kernel",
+                    "march_rays_train_kernel", "march_unended_kernel")
 GATHER_KERNELS = ("take_rows_kernel", "take_lanes_kernel",
                   "grid_probe_kernel")
 FILL_KERNELS = ("prefetch_write_kernel", "dynamic_loop_kernel",
@@ -217,6 +230,9 @@ FILL_KERNELS = ("prefetch_write_kernel", "dynamic_loop_kernel",
 # K7's fill kernels at ragged shapes: (tile, C, n_tiles)
 FILL_SHAPES = [(tile, C, 7) for tile in (1, 100, 1024)
                for C in (1, 3, 8, 128)] + [(1024, 8, 300)]
+# K8 at the NeRF cell's march: 8,192 rays a view of 800^2 pixels
+# (camera_angle_x 0.8, radius 3.5, poses scaled by 0.8), 128^3, 1,024 events
+MARCH_RAYS, MARCH_HW, MARCH_VIEWS, MARCH_SCALE = 8192, 800, 4, 0.8
 
 
 START = time.perf_counter()
@@ -1204,6 +1220,139 @@ def phase_scatter_probes(card):
                     f"{time.perf_counter() - t0:.1f} s; launches {launches} "
                     f"({card})")
     return launches
+
+
+def lego_occupancy(dev, H, sub=2):
+    """The lego-class scene's occupancy [1, H, H, H] uint8 in the bound-1
+    box, in the frame the provider's poses give (the blender scene's axes
+    cycled and scaled by MARCH_SCALE): a cell is set where one of sub^3
+    points inside it has density, as a trained grid's cells rise over the
+    threshold where the scene has matter."""
+    from laenerf_tpu_torch.data.synthetic import (lego_class_scene,
+                                                  scene_density_color)
+
+    g = ((torch.arange(H * sub, dtype=torch.float32, device=dev) + 0.5)
+         / (H * sub) * 2 - 1)
+    pts = torch.stack(torch.meshgrid(g, g, g, indexing="ij"), -1)
+    # ngp (x, y, z) = blender (y, z, x) * scale
+    pts = pts[..., [2, 0, 1]].reshape(-1, 3) / MARCH_SCALE
+    prims = lego_class_scene()
+    sigma = torch.cat([scene_density_color(c, prims, device=dev)[0]
+                       for c in pts.split(1 << 21)])
+    dense = sigma.reshape(H, sub, H, sub, H, sub).amax(dim=(1, 3, 5))
+    return (dense > 0).to(torch.uint8)[None]
+
+
+def march_batches(dev, occ, cfg):
+    """MARCH_VIEWS views' march inputs at the NeRF cell's batch."""
+    from laenerf_tpu_torch.data.provider import nerf_matrix_to_ngp
+    from laenerf_tpu_torch.data.rays import get_rays
+    from laenerf_tpu_torch.data.synthetic import _look_at_pose
+    from laenerf_tpu_torch.ops import raymarch
+
+    rng = np.random.RandomState(20)
+    focal = MARCH_HW / (2 * math.tan(0.4))
+    intr = torch.tensor([focal, focal, MARCH_HW / 2, MARCH_HW / 2],
+                        dtype=torch.float32, device=dev)
+    aabb = torch.tensor([-cfg.bound] * 3 + [cfg.bound] * 3,
+                        dtype=torch.float32, device=dev)
+    out = []
+    for v in range(MARCH_VIEWS):
+        phi, theta = 2 * math.pi * v / MARCH_VIEWS, 0.7 + 0.5 * rng.rand()
+        eye = 3.5 * np.array([math.sin(theta) * math.cos(phi),
+                              math.sin(theta) * math.sin(phi),
+                              math.cos(theta)])
+        pose = torch.from_numpy(nerf_matrix_to_ngp(
+            _look_at_pose(eye), scale=MARCH_SCALE)).to(dev)
+        inds = torch.from_numpy(rng.choice(MARCH_HW * MARCH_HW, MARCH_RAYS,
+                                           replace=False)).to(dev)
+        ro, rd = get_rays(pose, intr, inds, MARCH_HW, MARCH_HW)
+        nears, fars = raymarch.near_far_from_aabb(ro, rd, aabb)
+        noises = torch.from_numpy(
+            rng.rand(MARCH_RAYS).astype(np.float32)).to(dev)
+        out.append((ro, rd, occ, nears, fars, noises, cfg))
+    return out
+
+
+def march_equal(got, ref):
+    """K8's result against the plain loop's: valid, n_samples and t0 equal,
+    ts and dts bit-equal on the valid slots and finite elsewhere."""
+    v = ref["valid"]
+    bad = [k for k in ("valid", "n_samples", "t0")
+           if not torch.equal(got[k], ref[k])]
+    bad += [k for k in ("ts", "dts") if not torch.equal(
+        got[k].view(torch.int32)[v], ref[k].view(torch.int32)[v])]
+    bad += [f"{k} not finite" for k in ("ts", "dts")
+            if not bool(torch.isfinite(got[k]).all())]
+    return bad
+
+
+def phase_march(card, dev):
+    """K8 at the NeRF cell's march against its plain loop (see the
+    module's docstring); returns the kernel's entry of the last line."""
+    from laenerf_tpu_torch.ops import cuda_build, raymarch
+    from laenerf_tpu_torch.utils import timers
+
+    t_phase = time.perf_counter()
+    cfg = raymarch.MarchConfig(bound=1.0, cascades=1, grid_size=128,
+                               max_steps=1024, march_iters=1024)
+    occ = lego_occupancy(dev, cfg.grid_size)
+    batches = march_batches(dev, occ, cfg)
+    before = raymarch.march_rays_train.launches
+    events, samples = [], []
+    for i, args in enumerate(batches):
+        got = raymarch.march_rays_train(*args)
+        timers.start()
+        ref = raymarch.march_rays_train_plain(*args)
+        events.append(timers.stop()["counters"]["march.events"])
+        samples.append(int(ref["n_samples"].sum()))
+        bad = march_equal(got, ref)
+        if bad:
+            raise AssertionError(f"K8 differs from its plain loop in view "
+                                 f"{i}: {bad}")
+    phase("march", f"lego-class occupancy at 128^3: occ_frac "
+                   f"{float(occ.float().mean()):.4f}; {MARCH_VIEWS} views of "
+                   f"{MARCH_RAYS} rays: K8 equal to the plain loop (valid, "
+                   f"n_samples, t0; ts and dts bit-equal where valid); "
+                   f"plain events {events}, samples {samples}")
+
+    ro, rd, occ, nears, fars, noises, cfg = batches[0]
+    skip, t0 = raymarch._march_inputs(occ, nears, noises, cfg)
+
+    def kernel():
+        return raymarch._march_rays_cuda(ro, rd, skip, t0, fars, cfg)
+
+    ms = cuda_ms(kernel)
+    dev_total, dev_k8 = device_ms(kernel, name="march_rays_train_kernel")
+    _, dev_unended = device_ms(kernel, name="march_unended_kernel")
+    full_ms = cuda_ms(lambda: raymarch.march_rays_train(*batches[0]))
+    plain_ms = cuda_ms(lambda: raymarch.march_rays_train_plain(*batches[0]),
+                       reps=3)
+    n_bytes = MARCH_RAYS * cfg.march_iters * 9  # ts, dts f32 + valid
+    bound_ms, bound_by = bound_of(n_bytes)
+    launches = raymarch.march_rays_train.launches - before
+    ptxas = ptxas_kernels(cuda_build.build_info["raymarch.cu"]["ptxas"],
+                          ("march_rays_train_kernel",
+                           "march_unended_kernel"))
+    phase("march", f"K8 at {MARCH_RAYS} rays x {cfg.march_iters} events: "
+                   f"{ms:.4f} ms a call (CUDA events, with its allocations), "
+                   f"device {dev_total} ms ({dev_k8} ms in the kernel, "
+                   f"{dev_unended} ms in its unended pass); "
+                   f"bound {1e3 * bound_ms:.2f} us ({n_bytes} B by "
+                   f"{bound_by}); march_rays_train with its skip field "
+                   f"{full_ms:.4f} ms; plain loop {plain_ms:.2f} ms; "
+                   f"{launches} launches; ptxas "
+                   + "; ".join(f"{n} {r} registers, {sp} B spill stores, "
+                               f"{sm} B smem" for n, r, sp, sm in ptxas)
+                   + f"; phase {time.perf_counter() - t_phase:.1f} s "
+                   f"({card})")
+    return {"name": "march_rays_train", "route": "cuda",
+            "source": "laenerf_tpu_torch/csrc/raymarch.cu",
+            "replaces": "none (the plain loop of ops/raymarch.py; JAX's "
+                        "lax.scan at laenerf_tpu/ops/raymarch.py:368)",
+            "ms": ms, "device_ms": dev_k8, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "march_ms": full_ms}
 
 
 def kernel_entry(name, source, results, launches):
@@ -3009,6 +3158,7 @@ def main():
         return 1
     from laenerf_tpu_torch.models import NeRFConfig
     from laenerf_tpu_torch.ops import cuda_build
+    from laenerf_tpu_torch.ops.raymarch import march_rays_train
     from laenerf_tpu_torch.ops.scatter_add import scatter_add_rows
 
     dev = torch.device("cuda", 0)
@@ -3055,52 +3205,72 @@ def main():
     scatter_results = phase_scatter(card, dev)
     construct_results = phase_constructs(card, dev)
     scatter_launches = phase_scatter_probes(card)
+    march = phase_march(card, dev)
+
+    # K8's launches in each phase whose K1 launches the kernels line sums
+    k8 = {}
+
+    def main_path(name, run, *args):
+        march_rays_train.launches = 0
+        out = run(*args)
+        k8[name] = march_rays_train.launches
+        return out
 
     with tempfile.TemporaryDirectory() as tmp:
         scatter_add_rows.launches = 0
-        tr, ds = phase_train(card, dev, tmp)
+        tr, ds = main_path("train", phase_train, card, dev, tmp)
         train_launches = scatter_add_rows.launches
         if train_launches < TRAIN_STEPS:
             raise AssertionError(f"K1 launched {train_launches} times in "
                                  f"{TRAIN_STEPS} train steps")
-        phase_render(card, tr, ds)
+        if k8["train"] < TRAIN_STEPS:
+            raise AssertionError(f"K8 launched {k8['train']} times in "
+                                 f"{TRAIN_STEPS} train steps")
+        main_path("render", phase_render, card, tr, ds)
         launches = scatter_add_rows.launches
         phase("train", f"K1 launches on the main path: {launches}")
         k1_train_us = phase_profile(tr, ds)
         k1_span_turns(tr, ds)
         scatter_add_rows.launches = 0
-        recolor_launches, laenerf_site = phase_recolor(card, dev, tr, ds,
-                                                       tmp)
+        recolor_launches, laenerf_site = main_path(
+            "recolor", phase_recolor, card, dev, tr, ds, tmp)
         launches += recolor_launches
         phase("recolor", f"K1 launches on the main path, train and recolor: "
                          f"{launches}")
         scatter_add_rows.launches = 0
-        style_launches, style_site = phase_style(card, dev, tr, ds, tmp)
+        style_launches, style_site = main_path(
+            "style", phase_style, card, dev, tr, ds, tmp)
         scatter_add_rows.launches = 0
-        npr_launches, npr_site = phase_npr(card, dev, tr, ds, tmp)
+        npr_launches, npr_site = main_path("npr", phase_npr, card, dev, tr,
+                                           ds, tmp)
         launches += style_launches + npr_launches
         phase("npr", f"K1 launches on the main path, train, recolor, style "
                      f"and NPR: {launches}")
         phase_lpips(card, tr, tmp)
-        clip_launches, clip_site = phase_clip(card, dev, tr, ds)
+        clip_launches, clip_site = main_path("clip", phase_clip, card, dev,
+                                             tr, ds)
         launches += clip_launches
         scatter_add_rows.launches = 0
-        cli_launches, cli_site = phase_cli(card, dev, tmp)
+        cli_launches, cli_site = main_path("cli", phase_cli, card, dev, tmp)
         launches += cli_launches
         phase("cli", f"K1 launches on the main path, train, recolor, style, "
                      f"NPR, CLIP and CLI: {launches}")
-        bg_launches, bg_site, bg_tr = phase_background(card, dev, tmp, ds)
-        dp_launches, dp_site = phase_parallel(card, dev, bg_tr, ds, tmp)
+        bg_launches, bg_site, bg_tr = main_path(
+            "background", phase_background, card, dev, tmp, ds)
+        dp_launches, dp_site = main_path("parallel", phase_parallel, card,
+                                         dev, bg_tr, ds, tmp)
         launches += bg_launches + dp_launches
         phase("parallel", f"K1 launches on the main path, train, recolor, "
                           f"style, NPR, CLIP, CLI, background and "
                           f"data-parallel: {launches}")
         scatter_add_rows.launches = 0
-        gate_launches, gate_site = phase_gates(card, dev, tmp)
+        gate_launches, gate_site = main_path("gates", phase_gates, card,
+                                             dev, tmp)
         launches += gate_launches
         phase("gates", f"K1 launches on the main path, train, recolor, "
                        f"style, NPR, CLIP, CLI, background, data-parallel "
-                       f"and the gates: {launches}")
+                       f"and the gates: {launches}; K8's in the same phases "
+                       f"{sum(k8.values())} ({k8})")
 
     gather_src = "laenerf_tpu_torch/csrc/gather_probes.cu"
     scatter_src = "laenerf_tpu_torch/csrc/sorted_scatter.cu"
@@ -3130,7 +3300,8 @@ def main():
         + [kernel_entry(name, "laenerf_tpu_torch/csrc/construct_probes.cu",
                         construct_results, scatter_launches)
            for name in dict.fromkeys(r["kernel"]
-                                     for r in construct_results)]}),
+                                     for r in construct_results)]
+        + [dict(march, launches=sum(k8.values()))]}),
         flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

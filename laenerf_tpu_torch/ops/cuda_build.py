@@ -29,6 +29,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # ctypes argument types of the entry points' plain C interface
 P, I32, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+F32 = ctypes.c_float
 
 _LIBS = {}
 _FNS = {}  # (source, entry point) -> ctypes function, argtypes set once

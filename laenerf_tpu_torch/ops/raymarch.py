@@ -1,12 +1,14 @@
 """Occupancy-grid ray marching (counterpart of laenerf_tpu/ops/raymarch.py).
 
-Same design as the JAX package: a fixed budget of "march events" per ray,
-vectorized over all rays; each event either takes a sample (the occupancy
-grid is hit) or jumps past empty space using the chebyshev skip field. The
-JAX `lax.scan` becomes a Python loop over events, in blocks of 32 with an
-"any ray alive" check between blocks; exiting early changes no numbers and
-bounds the host syncs. Every event is a handful of small tensor ops, so on
-the card this loop is launch-bound; a march kernel is later work.
+Same design as the JAX package: a fixed budget of "march events" per ray;
+each event either takes a sample (the occupancy grid is hit) or jumps past
+empty space using the chebyshev skip field. On the card the train path's
+march is kernel K8 (csrc/raymarch.cu), a thread a ray. Its plain version,
+`march_rays_train_plain`, runs the JAX `lax.scan` as a Python loop over
+events vectorized over all rays, in blocks of 32 with an "any ray alive"
+check between blocks; the wrapper takes it for CPU tensors only. The
+inference and distill marches (models/renderer.py) call `make_march_event`
+in loops of their own.
 
 Zero direction components rely on IEEE 1/0 = inf, as in the JAX package.
 """
@@ -15,11 +17,13 @@ import dataclasses
 
 import torch
 
-from ..utils.timers import count, span
+from ..utils.timers import TRACER, count, span
+from .cuda_build import F32, I32, P, launch, on_cpu
 
 SQRT3 = 1.7320508075688772
 SKIP_LEVELS = 7  # max safe jump = 2^(SKIP_LEVELS-1) - 1 = 63 cells
 MARCH_BLOCK = 32  # events between "any ray alive" checks
+_SOURCE = "raymarch.cu"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -267,6 +271,20 @@ def make_march_event(rays_o, rays_d, skip_flat, cfg: MarchConfig,
     return event
 
 
+def _march_block(S):
+    """Events between the plain loop's alive checks (S: no check)."""
+    return MARCH_BLOCK if S % MARCH_BLOCK == 0 and S > MARCH_BLOCK else S
+
+
+def _march_inputs(occupancy, nears, noises, cfg: MarchConfig):
+    """The flat skip field and the perturbed origins t0 [N]."""
+    with span("march.skip_field"):
+        skip_flat = build_skip_field(occupancy, bound=cfg.bound).reshape(-1)
+    t0 = nears + torch.clamp(nears * cfg.dt_gamma, cfg.dt_min,
+                             cfg.dt_max) * noises
+    return skip_flat, t0
+
+
 def march_rays_train(rays_o, rays_d, occupancy, nears, fars, noises,
                      cfg: MarchConfig):
     """March all rays into fixed-shape padded sample grids.
@@ -278,16 +296,84 @@ def march_rays_train(rays_o, rays_d, occupancy, nears, fars, noises,
       noises: [N] in [0, 1) (zeros when not perturbing).
     Returns dict: ts, dts [N, S] float32 (sample start t and dt), valid
       [N, S] bool, t0 [N] perturbed origin, n_samples [N] int32.
+
+    On CUDA tensors this launches K8 (with, where S is whole blocks of
+    MARCH_BLOCK events, a one-block pass for rays whose t or far is NaN)
+    and counts the call in `march_rays_train.launches`; on CPU tensors it
+    runs
+    `march_rays_train_plain`. The two agree bit for bit on ts and dts
+    wherever valid is set, and on valid, t0 and n_samples everywhere; where
+    valid is not set, K8 holds each ray's last t and its dt, the plain
+    loop zeros after its last block. The counters `march.events` (the
+    events the plain loop runs) and `march.slots` (N times that) mean the
+    same on both; on the card they cost one host wait, made only while the
+    tracer records.
     """
-    with span("march.skip_field"):
-        skip_flat = build_skip_field(occupancy, bound=cfg.bound).reshape(-1)
-    t0 = nears + torch.clamp(nears * cfg.dt_gamma, cfg.dt_min,
-                             cfg.dt_max) * noises
+    if rays_o.device.type == "cpu":
+        return march_rays_train_plain(rays_o, rays_d, occupancy, nears, fars,
+                                      noises, cfg)
+    skip_flat, t0 = _march_inputs(occupancy, nears, noises, cfg)
+    with span("march.kernel"):
+        out, live = _march_rays_cuda(rays_o, rays_d, skip_flat, t0, fars,
+                                     cfg)
+    if TRACER.recording:
+        # the plain loop runs whole blocks until no ray is alive
+        N, S = rays_o.shape[0], cfg.march_iters
+        blk = _march_block(S)
+        n_run = S
+        if blk < S:
+            count("sync.march_events")
+            longest = int(live.max()) if N else 0
+            n_run = min(S, -(-longest // blk) * blk)
+        count("march.events", n_run)
+        count("march.slots", N * n_run)
+    return out
+
+
+def _march_rays_cuda(rays_o, rays_d, skip_flat, t0, fars, cfg):
+    """K8's launch: the march's result and each ray's live events [N]
+    int32 (events whose t was < far)."""
+    if rays_o.dtype != torch.float32 or rays_d.dtype != torch.float32 \
+            or fars.dtype != torch.float32:
+        raise TypeError("march_rays_train: rays and fars must be float32")
+    # the train batch's origins are one camera position expanded
+    rays_o, rays_d = rays_o.contiguous(), rays_d.contiguous()
+    on_cpu("march_rays_train", rays_o, rays_d, skip_flat, t0, fars)
+    N, S, H = rays_o.shape[0], cfg.march_iters, cfg.grid_size
+    dev = rays_o.device
+    ts = torch.empty((N, S), dtype=torch.float32, device=dev)
+    dts = torch.empty_like(ts)
+    valid = torch.empty((N, S), dtype=torch.bool, device=dev)
+    n_samples = torch.empty((N,), dtype=torch.int32, device=dev)
+    live = torch.empty_like(n_samples)
+    if N and S:
+        # the plain loop's Python scalars, rounded to float as PyTorch
+        # rounds them against a float32 tensor
+        mb = min(1.0, cfg.bound)
+        launch(_SOURCE, "march_rays_train", [P] * 10 + [I32] * 4 + [F32] * 11,
+               rays_o, rays_d, skip_flat, t0, fars, ts, dts, valid,
+               n_samples, live, N, S, H, cfg.cascades, cfg.bound,
+               cfg.dt_min, cfg.dt_max, cfg.dt_gamma, mb, 0.5 * H / mb,
+               (2.0 / H) * mb, 2.0 / H, H - 1.0, float(H), 1e-30)
+        march_rays_train.launches += 1
+    return {"ts": ts, "dts": dts, "valid": valid, "t0": t0,
+            "n_samples": n_samples}, live
+
+
+march_rays_train.launches = 0
+
+
+def march_rays_train_plain(rays_o, rays_d, occupancy, nears, fars, noises,
+                           cfg: MarchConfig):
+    """Plain PyTorch version of K8 (`march_rays_train`'s arguments and
+    result): the events as a Python loop over all rays, in blocks of
+    MARCH_BLOCK with an alive check between them."""
+    skip_flat, t0 = _march_inputs(occupancy, nears, noises, cfg)
 
     N = rays_o.shape[0]
     S = cfg.march_iters
     event = make_march_event(rays_o, rays_d, skip_flat, cfg)
-    blk = MARCH_BLOCK if S % MARCH_BLOCK == 0 and S > MARCH_BLOCK else S
+    blk = _march_block(S)
 
     ts_l, dts_l, occ_l = [], [], []
     t = t0

@@ -9,7 +9,8 @@ machine without JAX:
 Tolerance: the scatter-adds (K1, K5, K6) at relative 1e-5 of the max (f32
 atomics sum in another order on every run); the gathers and the construct
 probes (K7) exactly (they move values, count, or sum terms that add
-exactly); the distill render on the card against the CPU at 2e-3 absolute
+exactly); the march (K8) bit for bit on its valid slots (it rounds each
+operation as the plain loop's separate kernels do); the distill render on the card against the CPU at 2e-3 absolute
 (bf16 network, as the port against JAX).
 """
 
@@ -17,11 +18,13 @@ import numpy as np
 import pytest
 import torch
 
+import _march_cases
 import _worklist_cases
 from laenerf_tpu_torch.ops import construct_probes as cp
 from laenerf_tpu_torch.ops.gather import (grid_probe, grid_probe_plain,
                                           take_lanes, take_lanes_plain,
                                           take_rows, take_rows_plain)
+from laenerf_tpu_torch.ops import raymarch
 from laenerf_tpu_torch.ops.hashgrid import HashGridSpec, hashgrid_encode
 from laenerf_tpu_torch.ops.scatter_add import (RUN_SPAN, scatter_add_rows,
                                                scatter_add_rows_plain)
@@ -1020,3 +1023,80 @@ def test_background_encoder_backward_through_k1(cuda):
         grads.append(tt.grad.cpu())
     assert scatter_add_rows.launches == before + 1
     assert _rel_err(grads[0], grads[1]) < REL_TOL
+
+
+MARCH_CASES = {c[0]: c for c in _march_cases.kernel_cases()}
+MARCH_CASES["ngp_blender"] = None  # built in the test: 2 M cells
+
+
+def _march_inputs(name, dev):
+    case = MARCH_CASES[name] or _march_cases.ngp_blender_case()
+    _, kw, occ, ro, rd, noises = case
+    cfg = raymarch.MarchConfig(**kw)
+    b = cfg.bound
+    ro, rd = torch.from_numpy(ro).to(dev), torch.from_numpy(rd).to(dev)
+    aabb = torch.tensor([-b] * 3 + [b] * 3, device=dev)
+    nears, fars = raymarch.near_far_from_aabb(ro, rd, aabb)
+    return (ro, rd, torch.from_numpy(occ).to(dev), nears, fars,
+            torch.from_numpy(noises).to(dev), cfg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(MARCH_CASES))
+def test_march_kernel_matches_plain(cuda, name):
+    """K8 against its plain loop on the card: valid, n_samples and t0
+    equal; ts and dts bit-equal where valid is set and finite elsewhere
+    (but on rays whose t went NaN, in either); one launch a call."""
+    args = _march_inputs(name, cuda)
+    before = raymarch.march_rays_train.launches
+    got = raymarch.march_rays_train(*args)
+    ref = raymarch.march_rays_train_plain(*args)
+    torch.cuda.synchronize()
+    assert raymarch.march_rays_train.launches == before + 1
+    v = ref["valid"]
+    for k in ("valid", "n_samples", "t0"):
+        assert torch.equal(got[k], ref[k]), k
+    nan_rays = (torch.isnan(ref["ts"]) | torch.isnan(got["ts"])).any(
+        dim=1, keepdim=True)
+    for k in ("ts", "dts"):
+        assert got[k].shape == ref[k].shape
+        assert torch.equal(got[k].view(torch.int32)[v],
+                           ref[k].view(torch.int32)[v]), k
+        assert torch.isfinite(got[k])[~v & ~nan_rays].all(), k
+    if name.startswith("zero_dir"):  # a cell centre's 0 * inf reached t
+        assert bool(nan_rays.any())
+    if name == "zero_dir_corner":  # NaN rays sample the corner cell
+        assert bool((v & nan_rays).any())
+        assert int(v[:, -32:].sum()) == 0  # the loop stopped before S
+    if name not in ("empty", "miss"):
+        assert int(v.sum()) > 0
+
+
+@pytest.mark.cuda
+def test_march_kernel_host_waits(cuda):
+    """With the tracer off a K8 march makes no host wait; recording, it
+    waits once (sync.march_events, never sync.march_alive) and counts the
+    events and slots the plain loop counts."""
+    from laenerf_tpu_torch.utils import timers
+
+    args = _march_inputs("ngp_blender", cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        raymarch.march_rays_train(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    recs = []
+    for march in (raymarch.march_rays_train, raymarch.march_rays_train_plain):
+        timers.start()
+        try:
+            march(*args)
+        finally:
+            recs.append(timers.stop())
+    got, ref = (r["counters"] for r in recs)
+    assert got["sync.march_events"] == 1 and "sync.march_alive" not in got
+    assert ref["sync.march_alive"] > 0
+    for k in ("march.events", "march.slots"):
+        assert got[k] == ref[k], k
+    assert {s["name"] for s in recs[0]["spans"]} == {"march.skip_field",
+                                                     "march.kernel"}

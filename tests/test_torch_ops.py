@@ -26,6 +26,8 @@ from laenerf_tpu_torch.ops import composite as tcompo
 from laenerf_tpu_torch.ops import raymarch as tmarch
 from laenerf_tpu_torch.ops import sh as tsh
 
+from _march_cases import blob_grid, march_cases
+
 
 def _t(a, dtype=None):
     return torch.tensor(np.asarray(a), dtype=dtype)
@@ -102,17 +104,10 @@ def test_near_far_from_aabb_edge_cases():
         pytest.approx(4.0)
 
 
-def _blob_grid(seed, cas, H, p=0.97):
-    rng = np.random.RandomState(seed)
-    occ = (rng.rand(cas, H, H, H) > p).astype(np.uint8)
-    occ[:, H // 4:H // 2, H // 4:H // 2, H // 3:H // 2] = 1  # a solid block
-    return occ
-
-
 @pytest.mark.parametrize("cas,bound,H", [(1, 1.0, 32), (2, 2.0, 16),
                                          (2, 1.5, 16)])
 def test_build_skip_field_exact(cas, bound, H):
-    occ = _blob_grid(3, cas, H)
+    occ = blob_grid(3, cas, H)
     ref = np.asarray(jmarch.build_skip_field(jnp.asarray(occ), bound=bound))
     got = tmarch.build_skip_field(_t(occ), bound=bound).numpy()
     assert got.dtype == np.int8
@@ -124,53 +119,10 @@ def test_build_skip_field_exact(cas, bound, H):
                 jnp.asarray(occ, jnp.int8))))
 
 
-def _camera_rays(seed, n, bound):
-    rng = np.random.RandomState(seed)
-    eye = np.array([0.3, -0.4, -2.6], np.float32) * bound
-    tgt = rng.uniform(-0.6, 0.6, (n, 3)).astype(np.float32) * bound
-    rd = tgt - eye
-    rd /= np.linalg.norm(rd, axis=-1, keepdims=True)
-    ro = np.broadcast_to(eye, rd.shape).copy()
-    return ro, rd, rng.rand(n).astype(np.float32)
-
-
-def _march_fixtures():
-    """(name, MarchConfig, occupancy, rays_o, rays_d, noises)."""
-    out = []
-    z_o = np.array([[0.0, 0.0, -3.0]], np.float32)
-    z_d = np.array([[0.0, 0.0, 1.0]], np.float32)
-    zero = np.zeros(1, np.float32)
-    cfg = jmarch.MarchConfig(bound=1.0, cascades=1, grid_size=16,
-                             max_steps=64, march_iters=64)
-    out.append(("full", cfg, np.ones((1, 16, 16, 16), np.uint8), z_o, z_d,
-                zero))
-    out.append(("empty", cfg, np.zeros((1, 16, 16, 16), np.uint8), z_o, z_d,
-                zero))
-    out.append(("miss", cfg, np.ones((1, 16, 16, 16), np.uint8),
-                np.array([[0.0, 5.0, -3.0]], np.float32), z_d, zero))
-    half = np.zeros((1, 16, 16, 16), np.uint8)
-    half[0, :, :, 8:] = 1
-    out.append(("half", jmarch.MarchConfig(bound=1.0, grid_size=16,
-                                           max_steps=128, march_iters=160),
-                half, z_o, z_d, zero))
-    ro, rd, nz = _camera_rays(4, 512, 1.0)
-    out.append(("blobs", jmarch.MarchConfig(bound=1.0, grid_size=32,
-                                            max_steps=128, march_iters=128),
-                _blob_grid(5, 1, 32), ro, rd, nz))
-    ro, rd, nz = _camera_rays(6, 256, 2.0)
-    out.append(("cascade2", jmarch.MarchConfig(bound=2.0, cascades=2,
-                                               grid_size=16, max_steps=64,
-                                               march_iters=128),
-                _blob_grid(7, 2, 16, p=0.9), ro, rd, nz))
-    return out
-
-
-@pytest.mark.parametrize("fixture", _march_fixtures(), ids=lambda f: f[0])
+@pytest.mark.parametrize("fixture", march_cases(), ids=lambda f: f[0])
 def test_march_rays_train_agreement(fixture):
-    name, cfg, occ, ro, rd, noises = fixture
-    tcfg = tmarch.MarchConfig(**{f: getattr(cfg, f) for f in (
-        "bound", "cascades", "grid_size", "dt_gamma", "max_steps",
-        "march_iters")})
+    name, kw, occ, ro, rd, noises = fixture
+    cfg, tcfg = jmarch.MarchConfig(**kw), tmarch.MarchConfig(**kw)
     b = cfg.bound
     aabb = np.array([-b, -b, -b, b, b, b], np.float32)
     n_j, f_j = jmarch.near_far_from_aabb(jnp.asarray(ro), jnp.asarray(rd),
@@ -199,6 +151,56 @@ def test_march_rays_train_agreement(fixture):
     np.testing.assert_allclose(pos_t.numpy()[v_t & v_j],
                                np.asarray(pos_j)[v_t & v_j], rtol=1e-5,
                                atol=1e-5)
+
+
+def test_render_train_ignores_invalid_slots(monkeypatch):
+    """Nothing downstream of the train march reads ts or dts where valid is
+    false (K8 leaves each ray's last t and dt there, the plain loop zeros
+    after its last block): other finite values there leave
+    render_rays_train's image, depth and weights_sum and the network's
+    gradients bit for bit as they were, with the eval capacity cutting
+    rays short. A march on the CPU launches no kernel."""
+    from laenerf_tpu_torch.models import NeRFConfig, RenderConfig
+    from laenerf_tpu_torch.models import renderer
+    from laenerf_tpu_torch.models.nerf import NeRFNetwork
+
+    _, kw, occ, ro, rd, noises = march_cases()[4]  # blobs
+    net = NeRFNetwork(NeRFConfig(bound=1.0, num_levels=4,
+                                 log2_hashmap_size=12), device="cpu",
+                      generator=torch.Generator().manual_seed(0))
+    # 4 samples a ray of capacity, under the ~5.3 the rays hold
+    rcfg = RenderConfig(**kw, m_cap_per_ray=4)
+    real = tmarch.march_rays_train
+
+    def scrambled(*a, **k):
+        out = real(*a, **k)
+        g = torch.Generator().manual_seed(1)
+        bad = ~out["valid"]
+        out["ts"] = torch.where(bad, 50 * torch.rand(bad.shape, generator=g),
+                                out["ts"])
+        out["dts"] = torch.where(bad, 2 * torch.rand(bad.shape, generator=g),
+                                 out["dts"])
+        return out
+
+    def run():
+        net.zero_grad(set_to_none=True)
+        out = renderer.render_rays_train(net, _t(occ), _t(ro), _t(rd),
+                                         render_cfg=rcfg, noises=_t(noises))
+        (out["image"].sum() + out["depth"].sum()
+         + out["weights_sum"].sum()).backward()
+        return out, {n: p.grad.clone() for n, p in net.named_parameters()}
+
+    launches = tmarch.march_rays_train.launches
+    ref, ref_grads = run()
+    monkeypatch.setattr(renderer, "march_rays_train", scrambled)
+    got, grads = run()
+    assert tmarch.march_rays_train.launches == launches
+    assert not bool(ref["ray_ok"].all())  # the capacity cut some rays
+    for k in ("image", "depth", "weights_sum"):
+        assert torch.equal(got[k], ref[k]), k
+    assert grads.keys() == ref_grads.keys()
+    for n, g in ref_grads.items():
+        assert torch.equal(grads[n], g), n
 
 
 @pytest.mark.parametrize("m_cap", [40, 16])  # 16 < n_valid: overflow
