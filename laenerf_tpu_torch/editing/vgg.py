@@ -13,6 +13,16 @@ Filters are stored OIHW (F.conv2d's layout, the npz's own). The stack is
 frozen: no tensor here requires a gradient, so a backward through it forms
 only the input's gradient. Convolutions and products run in full f32
 (vgg_init turns TF32 off).
+
+Tracing (utils/timers.py): a call is the span `style.vgg` (attributes
+`size`, the input's [h, w], and `layers`) and adds its counted operations
+to `style.vgg_flops` (vgg_flops: the forward, plus as many again for the
+input gradient where the call will be differentiated). The input gradient
+through the stack is the span `style.vgg_backward`, opened and closed by
+two identity autograd nodes at the stack's outputs and input; it runs on
+autograd's thread and nests under the span that called backward. The
+ImageNet constants' two uploads are host waits, `sync.vgg_normalize`.
+With the tracer and the profiler off none of this runs.
 """
 
 import math
@@ -24,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from ..train.trainer import configure_matmul_precision
+from ..utils import timers
 
 # torchvision `features` layer indices: out_channels, or "M" for a max-pool
 VGG19_LAYOUT = [64, 64, "M", 128, 128, "M", 256, 256, 256, 256, "M",
@@ -101,10 +112,71 @@ def vgg_init(arch: str = "vgg19", seed: int = 0, *, device="cuda"):
     return params, kinds, pretrained
 
 
+def vgg_flops(kinds, hw, max_layer, batch=1):
+    """Operations of the stack's convolutions up to feature index
+    max_layer on a batch of [3, h, w] inputs: a multiply-add counts 2, a
+    3x3 filter 9 taps a channel pair, a max-pool halves h and w."""
+    h, w = (int(v) for v in hw)
+    cin, total = 3, 0
+    for kind, cout in kinds[:max_layer + 1]:
+        if kind == "conv":
+            total += 2 * 9 * cin * cout * h * w * batch
+            cin = cout
+        elif kind == "pool":
+            h, w = h // 2, w // 2
+    return total
+
+
+class _OpenBackward(torch.autograd.Function):
+    """Identity on the stack's outputs; on the way back, once every
+    output's gradient has arrived, opens the backward span."""
+
+    @staticmethod
+    def forward(ctx, back, *outs):
+        ctx.back = back
+        return tuple(o.view_as(o) for o in outs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        ctx.back.__enter__()
+        return (None,) + grads
+
+
+class _CloseBackward(torch.autograd.Function):
+    """Identity on the stack's input; on the way back, after the input
+    gradient is formed, closes the backward span."""
+
+    @staticmethod
+    def forward(ctx, back, x):
+        ctx.back = back
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        ctx.back.__exit__(None, None, None)
+        return None, grad
+
+
 def vgg_features(params, kinds, x, out_layers):
     """Run the stack on x [B, 3, H, W] (ImageNet-normalised) and return the
     activations at the torchvision feature indices in out_layers, in
     index order; the stack stops after the largest."""
+    if not timers.active():
+        return _stack(params, kinds, x, out_layers)
+    grad = torch.is_grad_enabled() and x.requires_grad
+    flops = vgg_flops(kinds, x.shape[-2:], max(out_layers), x.shape[0])
+    timers.count("style.vgg_flops", 2 * flops if grad else flops)
+    with timers.span("style.vgg", size=list(x.shape[-2:]),
+                     layers=list(out_layers)):
+        if not grad:
+            return _stack(params, kinds, x, out_layers)
+        back = timers.span("style.vgg_backward")
+        outs = _stack(params, kinds, _CloseBackward.apply(back, x),
+                      out_layers)
+        return list(_OpenBackward.apply(back, *outs))
+
+
+def _stack(params, kinds, x, out_layers):
     max_layer = max(out_layers)
     outs = []
     h = x
@@ -125,6 +197,7 @@ def vgg_features(params, kinds, x, out_layers):
 
 def normalize_imagenet(img):
     """img [..., 3, H, W] in [0, 1] -> ImageNet-normalised."""
+    timers.count("sync.vgg_normalize", 2)  # the constants' two uploads
     mean = torch.as_tensor(IMAGENET_MEAN, device=img.device)[:, None, None]
     std = torch.as_tensor(IMAGENET_STD, device=img.device)[:, None, None]
     return (img - mean) / std

@@ -112,11 +112,16 @@ class _Span:
         return False
 
 
+def active():
+    """True while a span is recorded or drawn as a profiler range."""
+    return TRACER.recording or _profiler._is_profiler_enabled
+
+
 def span(name, step=None, **attrs):
     """A context manager around one layer's work (see the module's
     docstring); the shared null context while neither recording nor a
     profiler is on."""
-    if not (TRACER.recording or _profiler._is_profiler_enabled):
+    if not active():
         return _NULL
     return _Span(name, step, attrs)
 

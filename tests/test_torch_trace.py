@@ -3,11 +3,13 @@ train step (train/trainer.py) and the LAENeRF step
 (editing/style_trainer.py), on the CPU at the sizes of
 test_torch_trainer.py and test_torch_editing.py: nothing recorded while
 off, the spans' nesting and step ids, the march and sample counters
-against what the march and K1 saw, and the spans as `record_function`
-ranges under a profiler."""
+against what the march and K1 saw, the VGG stack's spans and operation
+count inside a style step (editing/vgg.py), and the spans as
+`record_function` ranges under a profiler."""
 
 import tempfile
 import threading
+import warnings
 
 import numpy as np
 import pytest
@@ -16,11 +18,14 @@ from torch.profiler import ProfilerActivity, profile
 
 from laenerf_tpu_torch.data import NeRFDataset, generate_synthetic_scene
 from laenerf_tpu_torch.editing import style_trainer as st
+from laenerf_tpu_torch.editing import vgg
+from laenerf_tpu_torch.editing.style import StyleNetwork
 from laenerf_tpu_torch.editing.laenerf import LAENeRFConfig
 from laenerf_tpu_torch.models import NeRFConfig, RenderConfig
 from laenerf_tpu_torch.ops import raymarch
 from laenerf_tpu_torch.train import trainer as ttrain
 from laenerf_tpu_torch.utils import timers
+from nerfbench import counts_vgg
 
 MODEL_CFG = NeRFConfig(bound=1.0, num_levels=4, log2_hashmap_size=12)
 # 128 events in blocks of 32, so the march checks for live rays
@@ -317,3 +322,116 @@ def test_phase_timer_spans():
     assert timer["edit_dataset"] == dt > 0
     assert abs(dt - (phase["end"] - phase["start"]) / 1e9) < 1e-2
     assert set(timer.summary()) == {"edit_dataset", "sum"}
+
+
+STYLE_LAYERS = (10, 12, 14)
+VGG19_TO_14 = [64, 64, "M", 128, 128, "M", 256, 256, 256]
+
+
+@pytest.fixture(scope="module")
+def style_net():
+    """A StyleNetwork at the crop's size, on vgg_init's seeded filters."""
+    img = np.random.RandomState(3).rand(3, CROP, CROP).astype(np.float32)
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message=".*random filters")
+        return StyleNetwork(img, style_layers=STYLE_LAYERS, size=CROP,
+                            device="cpu")
+
+
+def _style_trainer(style_net):
+    weights = st.StyleLossWeights(smooth_trans_weight=5e-2, offset_loss=1e-3,
+                                  palette_loss_valid=1e-1, style_weight=1.0,
+                                  warmup_iterations=0)
+    tr = st.LAENeRFTrainer(LCFG, weights, _EditViews(),
+                           style_network=style_net, crop_size=CROP,
+                           device="cpu")
+    tr.step = 1  # past warm-up: the Gram term runs
+    return tr
+
+
+def test_vgg_spans_nest(style_net):
+    """A style step's stack: style.vgg under laenerf.gram with its size and
+    layers, style.vgg_backward under laenerf.backward, inside it and
+    before K1 (the encoder's backward comes last)."""
+    tr = _style_trainer(style_net)
+    timers.start()
+    tr.train_steps(2)
+    rec = timers.stop()
+    ids = _by_id(rec)
+    fw = [s for s in rec["spans"] if s["name"] == "style.vgg"]
+    bw = [s for s in rec["spans"] if s["name"] == "style.vgg_backward"]
+    assert len(fw) == len(bw) == 2
+    for s in fw:
+        assert ids[s["parent"]]["name"] == "laenerf.gram"
+        assert s["attrs"] == {"size": [CROP, CROP],
+                              "layers": list(STYLE_LAYERS)}
+    for s in bw:
+        p = ids[s["parent"]]
+        assert p["name"] == "laenerf.backward" and s["attrs"] == {}
+        assert p["start"] <= s["start"] <= s["end"] <= p["end"]
+        assert s["step"] == p["step"]
+        (k1,) = [k for k in rec["spans"]
+                 if k["name"] == "k1" and k["parent"] == p["id"]]
+        assert s["end"] <= k1["start"]
+
+
+def test_vgg_backward_nests_across_threads(style_net):
+    """The stack's backward run on another thread (as autograd's is on the
+    card) nests under the span open on the main thread."""
+    x = torch.rand((3, 20, 24), requires_grad=True)
+    timers.start()
+    loss = style_net(x)
+    with timers.span("laenerf.backward", step=9):
+        t = threading.Thread(target=loss.backward)
+        t.start()
+        t.join(timeout=60)
+    assert not t.is_alive()
+    rec = timers.stop()
+    ids = _by_id(rec)
+    (bw,) = [s for s in rec["spans"] if s["name"] == "style.vgg_backward"]
+    assert ids[bw["parent"]]["name"] == "laenerf.backward"
+    assert bw["step"] == 9 and bw["end"] is not None
+    assert x.grad is not None and torch.isfinite(x.grad).all()
+
+
+def test_vgg_flops_match_the_count(style_net):
+    """style.vgg_flops adds the benchmark's count of the stack's
+    convolutions: twice the forward's for a differentiated call (the input
+    gradient costs as much again), once for one under no_grad; and the
+    ImageNet constants' two uploads a call count as waits."""
+    fwd = counts_vgg.stack_flops(VGG19_TO_14, (CROP, CROP), 14)
+    assert vgg.vgg_flops(style_net.kinds, (CROP, CROP), 14) == fwd
+    tr = _style_trainer(style_net)
+    timers.start()
+    tr.train_steps(3)
+    with torch.no_grad():
+        style_net(torch.rand((3, 12, 12)))
+    rec = timers.stop()
+    assert rec["counters"]["style.vgg_flops"] == 3 * 2 * fwd + fwd
+    assert rec["counters"]["sync.vgg_normalize"] == 4 * 2
+
+
+def test_style_off_records_nothing(style_net, monkeypatch):
+    """Off, a style step opens no span, adds to no counter and puts no
+    span node into the autograd graph; its numbers are those of a
+    recorded step."""
+    def refuse(*a, **k):
+        raise AssertionError("the tracer recorded while off")
+
+    losses = {}
+    for on in (True, False):
+        tr = _style_trainer(style_net)
+        if on:
+            timers.start()
+        else:
+            monkeypatch.setattr(timers.TRACER, "opened", refuse)
+            monkeypatch.setattr(timers._Span, "__init__", refuse)
+            monkeypatch.setattr(vgg._OpenBackward, "apply", refuse)
+        losses[on] = tr.train_steps(2)
+        losses[on, "params"] = {n: p.detach().clone()
+                                for n, p in tr.model.named_parameters()}
+        timers.stop()
+    assert timers.TRACER.spans == [] and timers.TRACER.counters == {}
+    assert losses[True] == losses[False]
+    for n, p in losses[True, "params"].items():
+        assert torch.equal(p, losses[False, "params"][n]), n
