@@ -7,13 +7,14 @@ Phases, one or more lines each, tagged with the seconds since the start
   1. device: requires CUDA; prints the card's name and power limit.
   2. build: compiles the CUDA sources (csrc/scatter_add.cu: K1;
      csrc/gather_probes.cu: K2-K4; csrc/sorted_scatter.cu: K5, K6;
-     csrc/construct_probes.cu: K7; csrc/raymarch.cu: K8) with nvcc, one
-     process per source, all started together; prints the registers,
-     shared memory and spill stores of K1's, K2's, K3's, K4's, K7 k1's,
-     k4's, k5's and k7's and K8's kernels, and what cuobjdump -sass shows of the gather kernels and of
-     K7's fill kernels (k1, k5, k7): instances with a 16-byte store and a
-     16-byte load, calls such as a 64-bit division routine, and FADDs
-     (k5's loop; the phase fails if k5 has none, a loop folded away).
+     csrc/construct_probes.cu: K7; csrc/raymarch.cu: K8; csrc/composite.cu:
+     K9) with nvcc, one process per source, all started together; prints
+     the registers, shared memory and spill stores of K1's, K2's, K3's,
+     K4's, K7 k1's, k4's, k5's and k7's, K8's and K9's kernels, and what
+     cuobjdump -sass shows of the gather kernels and of K7's fill kernels
+     (k1, k5, k7): instances with a 16-byte store and a 16-byte load,
+     calls such as a 64-bit division routine, and FADDs (k5's loop; the
+     phase fails if k5 has none, a loop folded away).
   3. K1 against its plain PyTorch version on the card: the cases of the
      JAX package's scatter-add tests; the main-path shape (65,536 samples x
      8 levels x 8 corners of the L8C4 lg19 grid, passed as the backward
@@ -68,12 +69,17 @@ Phases, one or more lines each, tagged with the seconds since the start
      CUDA events and on the device against its byte bound (N x S x 9 B),
      march_rays_train with the skip field, the plain loop's time, the
      phase's launch count and ptxas's registers and spills of its
-     variants.
+     variants. Then K9 composite_rays_train_packed on the first view's
+     samples packed as the train path packs them (capacity 262,144), the
+     scene's density and colour at them: forward and backward (from all
+     three outputs) against its plain version, at the card tests'
+     tolerances; each one's time by CUDA events and on the device against
+     its byte bound, the plain version's, and ptxas's report.
   10. train: the bench configuration (L8C4 lg19, 4096-ray batches of a
      16-view 100x100 synthetic scene), mark_untrained, then 272
      Trainer.train_one_batch steps (17 occupancy refreshes, the last one
      partial). The loss must fall, the density grid's mean must halve, and
-     every step must launch K1 and K8.
+     every step must launch K1, K8 and K9's forward and backward.
   11. render: one 400x400 frame with Trainer.render_image, and the
      train-view PSNR at 100x100.
   12. profile: kernel launches and device-busy share of a few train steps,
@@ -181,8 +187,8 @@ Phases, one or more lines each, tagged with the seconds since the start
 Every K1 site (k1_site) holds K1, and prints its plain version too,
 against the same rows summed in float64 (k1_f64).
 Then one JSON line with every kernel of the path, the nvidia-smi line, and
-the final {"ok": true, "device": ...} line. K1's and K8's launches in that
-line are those of the main-path phases (train and render, recolor, style,
+the final {"ok": true, "device": ...} line. K1's, K8's and K9's launches in
+that line are those of the main-path phases (train and render, recolor, style,
 NPR, CLIP, CLI, background, parallel and gates), counted phase by phase;
 the probe and march phases' own launches are in their lines.
 
@@ -210,7 +216,7 @@ TRAIN_STEPS = 272
 RENDER_HW = 400  # 800 until the gates phase joined the run
 REL_TOL = 1e-5  # K1 against the float64 sum of its input (k1_f64)
 SOURCES = ("scatter_add.cu", "gather_probes.cu", "sorted_scatter.cu",
-           "construct_probes.cu", "raymarch.cu")
+           "construct_probes.cu", "raymarch.cu", "composite.cu")
 # the least time of a kernel: the larger of its bytes over the memory rate
 # and its operations over the peak rate (NVIDIA's H100 SXM data sheet, 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -222,7 +228,8 @@ REPORTED_KERNELS = ("take_rows_kernel", "take_lanes_kernel",
                     "grid_probe_kernel", "copy_1d_kernel",
                     "scatter_add_rows_kernel", "prefetch_write_kernel",
                     "dynamic_loop_kernel", "iota_rows_kernel",
-                    "march_rays_train_kernel", "march_unended_kernel")
+                    "march_rays_train_kernel", "march_unended_kernel",
+                    "composite_forward_kernel", "composite_backward_kernel")
 GATHER_KERNELS = ("take_rows_kernel", "take_lanes_kernel",
                   "grid_probe_kernel")
 FILL_KERNELS = ("prefetch_write_kernel", "dynamic_loop_kernel",
@@ -233,6 +240,8 @@ FILL_SHAPES = [(tile, C, 7) for tile in (1, 100, 1024)
 # K8 at the NeRF cell's march: 8,192 rays a view of 800^2 pixels
 # (camera_angle_x 0.8, radius 3.5, poses scaled by 0.8), 128^3, 1,024 events
 MARCH_RAYS, MARCH_HW, MARCH_VIEWS, MARCH_SCALE = 8192, 800, 4, 0.8
+K9_CAP = MARCH_RAYS * 32  # the NeRF cell's capacity, m_cap_per_ray 32
+K9_TOL = 1e-5  # K9 against its plain version (tests/test_torch_cuda.py)
 
 
 START = time.perf_counter()
@@ -1346,13 +1355,148 @@ def phase_march(card, dev):
                                f"{sm} B smem" for n, r, sp, sm in ptxas)
                    + f"; phase {time.perf_counter() - t_phase:.1f} s "
                    f"({card})")
-    return {"name": "march_rays_train", "route": "cuda",
-            "source": "laenerf_tpu_torch/csrc/raymarch.cu",
-            "replaces": "none (the plain loop of ops/raymarch.py; JAX's "
-                        "lax.scan at laenerf_tpu/ops/raymarch.py:368)",
-            "ms": ms, "device_ms": dev_k8, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "march_ms": full_ms}
+    k8 = {"name": "march_rays_train", "route": "cuda",
+          "source": "laenerf_tpu_torch/csrc/raymarch.cu",
+          "replaces": "none (the plain loop of ops/raymarch.py; JAX's "
+                      "lax.scan at laenerf_tpu/ops/raymarch.py:368)",
+          "ms": ms, "device_ms": dev_k8, "plain_ms": plain_ms,
+          "bound_ms": bound_ms, "bound_by": bound_by,
+          "march_ms": full_ms}
+    return k8, composite_at_march(card, dev, batches[0])
+
+
+def composite_at_march(card, dev, batch):
+    """K9 on a march batch's samples packed as the train path packs them
+    (capacity K9_CAP), the lego-class scene's density and colour at them,
+    through composite_check."""
+    from laenerf_tpu_torch.data.synthetic import (lego_class_scene,
+                                                  scene_density_color)
+    from laenerf_tpu_torch.ops import raymarch
+    from laenerf_tpu_torch.ops.compaction import packed_sample_indices
+
+    t_phase = time.perf_counter()
+    ro, rd, _, _, _, _, cfg = batch
+    march = raymarch.march_rays_train(*batch)
+    idx = packed_sample_indices(march["valid"], K9_CAP)
+    ray = idx // cfg.march_iters
+    ts = march["ts"].reshape(-1)[idx]
+    dts = march["dts"].reshape(-1)[idx]
+    xyz = raymarch.sample_positions(ro[ray], rd[ray], ts, cfg.bound)
+    # ngp (x, y, z) = blender (y, z, x) * scale, as lego_occupancy
+    sig, rgb = scene_density_color(xyz[:, [2, 0, 1]] / MARCH_SCALE,
+                                   lego_class_scene(), device=dev)
+    phase("march", f"K9's inputs in {time.perf_counter() - t_phase:.1f} s")
+    return composite_check(card, dev, sig, rgb, dts, ts, march["n_samples"],
+                           march["t0"], ray)
+
+
+def composite_check(card, dev, sig, rgb, dts, ts, counts, t0, ray):
+    """K9 over packed samples (ray [M]: each one's ray, counts [N] int32
+    each ray's samples before the cut at K9_CAP) against its plain
+    version, forward and backward from all three outputs; their times and
+    byte bounds, the plain version's time and ptxas's report; returns the
+    kernel's entry of the last line."""
+    from laenerf_tpu_torch.ops import composite, cuda_build
+
+    t_phase = time.perf_counter()
+    args = (dts, ts, torch.cumsum(counts, 0), counts, t0, 1e-4)
+    N, M = counts.shape[0], sig.shape[0]
+    g = torch.Generator().manual_seed(9)
+    cots = [torch.randn(shape, generator=g).to(dev)
+            for shape in ((N,), (N,), (N, 3))]
+
+    before = (composite.composite_rays_train_packed.launches,
+              composite.composite_rays_train_packed_backward.launches)
+    res = []
+    for fn in (composite.composite_rays_train_packed,
+               composite.composite_rays_train_packed_plain):
+        s = sig.clone().requires_grad_(True)
+        c = rgb.clone().requires_grad_(True)
+        outs = fn(s, c, *args)
+        torch.autograd.backward(outs, cots)
+        res.append(([o.detach() for o in outs], s.grad, c.grad))
+    (got, gs, gc), (ref, rs, rc) = res
+    # a sigma gradient is a difference of terms up to dt * |dL/dw|
+    cw, cd, ci = (c.abs().reshape(N, -1).sum(dim=1)[ray] for c in cots)
+    delta = ((ts + dts) - t0[ray]).abs()
+    scale = float((dts * (cw + cd * delta + ci * rgb.amax(dim=-1))).max())
+    errs = [rel_err(a, b) for a, b in zip(got, ref)] + [rel_err(gc, rc)]
+    sig_err = float((gs - rs).abs().max()) / scale
+    if max(errs + [sig_err]) >= K9_TOL or float(ref[0].max()) <= 0.99:
+        raise AssertionError(f"K9 differs from its plain version: relative "
+                             f"errors of weights_sum, depth, image, the rgb "
+                             f"gradient {errs}, the sigma gradient "
+                             f"{sig_err}; largest weights_sum "
+                             f"{float(ref[0].max())}")
+    launched = (composite.composite_rays_train_packed.launches - before[0],
+                composite.composite_rays_train_packed_backward.launches
+                - before[1])
+    if launched != (1, 1):
+        raise AssertionError(f"K9 launched {launched} times (forward, "
+                             f"backward) for one call")
+
+    class Saved:  # stands in for autograd's context of one forward
+        def set_materialize_grads(self, value):
+            pass
+
+        def save_for_backward(self, *tensors):
+            self.saved_tensors = tensors
+
+    ctx = Saved()
+    composite._CompositePacked.forward(ctx, sig, rgb, *args)
+
+    def forward():
+        return composite.composite_rays_train_packed(sig, rgb, *args)
+
+    def backward():
+        return composite.composite_rays_train_packed_backward(
+            *cots, *ctx.saved_tensors, 1e-4)
+
+    def plain():
+        s = sig.clone().requires_grad_(True)
+        c = rgb.clone().requires_grad_(True)
+        torch.autograd.backward(
+            composite.composite_rays_train_packed_plain(s, c, *args), cots)
+
+    fwd_ms, bwd_ms = cuda_ms(forward), cuda_ms(backward)
+    fwd_dev = device_ms(forward, name="composite_forward_kernel")[1]
+    bwd_dev = device_ms(backward, name="composite_backward_kernel")[1]
+    plain_ms = cuda_ms(plain, reps=3)
+    # forward: sigma, rgb, dt, t in, ends, counts, t0 in and weights_sum,
+    # depth, image, n_open out; backward: the same samples, rgb and sigma
+    # gradients out, the per-ray inputs, outputs and output gradients in
+    fwd_bytes, bwd_bytes = M * 24 + N * 40, M * 40 + N * 64
+    fwd_bound, fwd_by = bound_of(fwd_bytes)
+    bwd_bound, bwd_by = bound_of(bwd_bytes)
+    ptxas = ptxas_kernels(cuda_build.build_info["composite.cu"]["ptxas"],
+                          ("composite_forward_kernel",
+                           "composite_backward_kernel"))
+    phase("march", f"K9 at {N} rays, {M} packed samples of "
+                   f"{int(counts.sum())} (capacity {K9_CAP}, most "
+                   f"{int(counts.max())} a ray): equal to its plain version "
+                   f"(relative errors {max(errs):.3g}, sigma gradient "
+                   f"{sig_err:.3g} of {scale:.4g}); forward {fwd_ms:.4f} ms "
+                   f"a call (CUDA events), device {fwd_dev} ms, bound "
+                   f"{1e3 * fwd_bound:.2f} us ({fwd_bytes} B by {fwd_by}); "
+                   f"backward {bwd_ms:.4f} ms, device {bwd_dev} ms, bound "
+                   f"{1e3 * bwd_bound:.2f} us ({bwd_bytes} B by {bwd_by}); "
+                   f"plain forward and backward {plain_ms:.2f} ms; ptxas "
+                   + "; ".join(f"{n} {r} registers, {sp} B spill stores, "
+                               f"{sm} B smem" for n, r, sp, sm in ptxas)
+                   + f"; {time.perf_counter() - t_phase:.1f} s ({card})")
+    return {"name": "composite_rays_train_packed", "route": "cuda",
+            "source": "laenerf_tpu_torch/csrc/composite.cu",
+            "replaces": "none (scatter_back and composite_rays_train over "
+                        "the padded grid; JAX's at "
+                        "laenerf_tpu/ops/composite.py)",
+            "max_rel_err": max(errs + [sig_err]),
+            "ms": fwd_ms + bwd_ms, "forward_ms": fwd_ms,
+            "backward_ms": bwd_ms,
+            "device_ms": (None if None in (fwd_dev, bwd_dev)
+                          else fwd_dev + bwd_dev),
+            "plain_ms": plain_ms, "bound_ms": fwd_bound + bwd_bound,
+            "bound_by": "bytes" if "bytes" in (fwd_by, bwd_by)
+            else "operations"}
 
 
 def kernel_entry(name, source, results, launches):
@@ -3158,6 +3302,8 @@ def main():
         return 1
     from laenerf_tpu_torch.models import NeRFConfig
     from laenerf_tpu_torch.ops import cuda_build
+    from laenerf_tpu_torch.ops.composite import (
+        composite_rays_train_packed, composite_rays_train_packed_backward)
     from laenerf_tpu_torch.ops.raymarch import march_rays_train
     from laenerf_tpu_torch.ops.scatter_add import scatter_add_rows
 
@@ -3205,15 +3351,20 @@ def main():
     scatter_results = phase_scatter(card, dev)
     construct_results = phase_constructs(card, dev)
     scatter_launches = phase_scatter_probes(card)
-    march = phase_march(card, dev)
+    march, k9_entry = phase_march(card, dev)
 
-    # K8's launches in each phase whose K1 launches the kernels line sums
-    k8 = {}
+    # K8's and K9's launches in each phase whose K1 launches the kernels
+    # line sums
+    k8, k9, k9_bwd = {}, {}, {}
+    counted = ((march_rays_train, k8), (composite_rays_train_packed, k9),
+               (composite_rays_train_packed_backward, k9_bwd))
 
     def main_path(name, run, *args):
-        march_rays_train.launches = 0
+        for fn, _ in counted:
+            fn.launches = 0
         out = run(*args)
-        k8[name] = march_rays_train.launches
+        for fn, per_phase in counted:
+            per_phase[name] = fn.launches
         return out
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -3223,9 +3374,11 @@ def main():
         if train_launches < TRAIN_STEPS:
             raise AssertionError(f"K1 launched {train_launches} times in "
                                  f"{TRAIN_STEPS} train steps")
-        if k8["train"] < TRAIN_STEPS:
-            raise AssertionError(f"K8 launched {k8['train']} times in "
-                                 f"{TRAIN_STEPS} train steps")
+        for name, per_phase in (("K8", k8), ("K9's forward", k9),
+                                ("K9's backward", k9_bwd)):
+            if per_phase["train"] < TRAIN_STEPS:
+                raise AssertionError(f"{name} launched {per_phase['train']} "
+                                     f"times in {TRAIN_STEPS} train steps")
         main_path("render", phase_render, card, tr, ds)
         launches = scatter_add_rows.launches
         phase("train", f"K1 launches on the main path: {launches}")
@@ -3270,7 +3423,9 @@ def main():
         phase("gates", f"K1 launches on the main path, train, recolor, "
                        f"style, NPR, CLIP, CLI, background, data-parallel "
                        f"and the gates: {launches}; K8's in the same phases "
-                       f"{sum(k8.values())} ({k8})")
+                       f"{sum(k8.values())} ({k8}); K9's forward "
+                       f"{sum(k9.values())} ({k9}), backward "
+                       f"{sum(k9_bwd.values())} ({k9_bwd})")
 
     gather_src = "laenerf_tpu_torch/csrc/gather_probes.cu"
     scatter_src = "laenerf_tpu_torch/csrc/sorted_scatter.cu"
@@ -3301,7 +3456,9 @@ def main():
                         construct_results, scatter_launches)
            for name in dict.fromkeys(r["kernel"]
                                      for r in construct_results)]
-        + [dict(march, launches=sum(k8.values()))]}),
+        + [dict(march, launches=sum(k8.values())),
+           dict(k9_entry, launches=sum(k9.values()),
+                backward_launches=sum(k9_bwd.values()))]}),
         flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

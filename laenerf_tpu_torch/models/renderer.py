@@ -1,8 +1,8 @@
 """Volume-rendering paths: training, inference and distillation
 (counterpart of laenerf_tpu/models/renderer.py).
 
-  * train: march (no gradient) -> compact the valid samples -> one network
-    eval -> scatter back -> differentiable masked composite.
+  * train: march (no gradient) -> pack the valid samples -> one network
+    eval -> composite each ray's run of packed samples (K9 on the card).
   * inference: a host loop of rounds; each round marches K_march events per
     ray, packs the occupied ones into K sample slots, evaluates the network
     on the compacted valid samples and folds them into per-ray accumulators.
@@ -21,8 +21,13 @@ import dataclasses
 
 import torch
 
-from ..ops.compaction import compact_samples, gather_flat, scatter_back
-from ..ops.composite import composite_chunk, composite_rays_train
+from ..ops.compaction import (compact_samples, gather_flat,
+                              packed_sample_indices, scatter_back)
+# composite_rays_train is not called here; it stays bound in this module,
+# where nerfbench's train cell patches it by name
+from ..ops.composite import (composite_chunk,  # noqa: F401
+                             composite_rays_train,
+                             composite_rays_train_packed)
 from ..ops.raymarch import (MarchConfig, build_skip_field, make_march_event,
                             march_rays_train, near_far_from_aabb,
                             sample_positions, sph_from_ray)
@@ -126,30 +131,24 @@ def render_rays_train(net: NeRFNetwork, occupancy, rays_o, rays_d, *,
     S = cfg.march_iters
 
     with span("render.network"):
-        xyz_flat = sample_positions(rays_o, rays_d, ts,
-                                    cfg.bound).reshape(-1, 3)
-        dirs = rays_d[:, None, :].expand(N, S, 3).reshape(-1, 3)
-
         m_cap = train_capacity(N, render_cfg)
-        gather_idx, gather_mask, dest = compact_samples(valid, m_cap)
-        count("sync.render_count")
-        n = int(gather_mask.sum())
-        count("render.samples", n)
-        idx = gather_idx[:n]
-        sigmas_c, rgbs_c = nerf_forward(net, gather_flat(xyz_flat, idx),
-                                        gather_flat(dirs, idx))
-        sigmas_c = sigmas_c * render_cfg.density_scale
-        both = scatter_back(torch.cat([sigmas_c[:, None], rgbs_c], dim=1),
-                            dest, (N, S), gather_idx=idx,
-                            gather_mask=gather_mask[:n])
-    sigmas, rgbs = both[..., 0], both[..., 1:]
+        idx = packed_sample_indices(valid, m_cap)
+        count("render.samples", idx.shape[0])
+        ray = idx // S
+        ts_p = gather_flat(ts.reshape(-1), idx)
+        dts_p = gather_flat(dts.reshape(-1), idx)
+        dirs = rays_d[ray]
+        xyz = sample_positions(rays_o[ray], dirs, ts_p, cfg.bound)
+        sigmas, rgbs = nerf_forward(net, xyz, dirs)
+        sigmas = sigmas * render_cfg.density_scale
     with span("render.composite"):
-        # capacity-dropped samples are a per-ray suffix: composite the prefix
-        valid_eval = valid & (dest < m_cap)
-        ray_ok = ~torch.any(valid & (dest >= m_cap), dim=1)
-
-        weights_sum, depth, image = composite_rays_train(
-            sigmas, rgbs, dts, ts, valid_eval, march["t0"],
+        # capacity-dropped samples are a per-ray suffix: each ray composites
+        # its evaluated prefix, and is ok if nothing was dropped
+        n_samples = march["n_samples"]
+        ends = torch.cumsum(n_samples, dim=0)
+        ray_ok = (ends <= m_cap) | (n_samples == 0)
+        weights_sum, depth, image = composite_rays_train_packed(
+            sigmas, rgbs, dts_p, ts_p, ends, n_samples, march["t0"],
             render_cfg.t_thresh)
         image = image + (1.0 - weights_sum)[:, None] * _background(
             net, rays_o, rays_d, bg_color)

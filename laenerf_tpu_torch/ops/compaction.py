@@ -1,11 +1,13 @@
 """Sample compaction for network evaluation (counterpart of
 laenerf_tpu/ops/compaction.py).
 
-compact -> evaluate the MLP on the valid samples -> scatter_back to [N, S].
-Samples are packed in row-major (ray, slot) order into a buffer of capacity
-m_cap; samples past the capacity are dropped, which truncates a per-ray
-suffix. The JAX package builds the inverse map without scatters (TPU
-scatters are slow); here `nonzero` does it, with the same destinations.
+compact -> evaluate the MLP on the valid samples -> scatter_back to [N, S]
+(the inference rounds); the train path keeps its samples packed
+(`packed_sample_indices`) and composites them so. Samples are packed in
+row-major (ray, slot) order into a buffer of capacity m_cap; samples past
+the capacity are dropped, which truncates a per-ray suffix. The JAX
+package builds the inverse map without scatters (TPU scatters are slow);
+here `nonzero` does it, with the same destinations.
 """
 
 import torch
@@ -30,13 +32,21 @@ def compact_samples(valid, m_cap: int):
     pos = torch.cumsum(flat.to(torch.int64), dim=0) - 1
     keep = flat & (pos < m_cap)
     dest = torch.where(keep, pos, m_cap).reshape(valid.shape)
-    count("sync.compact_nonzero")
-    src = torch.nonzero(flat).squeeze(1)[:m_cap]
+    src = packed_sample_indices(valid, m_cap)
     gather_idx = torch.zeros((m_cap,), dtype=torch.int64, device=valid.device)
     gather_idx[:src.shape[0]] = src
     gather_mask = (torch.arange(m_cap, device=valid.device)
                    < src.shape[0])
     return gather_idx, gather_mask, dest
+
+
+def packed_sample_indices(valid, m_cap: int):
+    """The flat (ray, slot) indices [M] of the first M = min(n_valid,
+    m_cap) valid samples in row-major order: compact_samples' gather_idx
+    without its padding, mask and destinations. Ray r's samples are a run
+    of it, the first clamp(m_cap - start_r, 0, n_r) of its n_r."""
+    count("sync.compact_nonzero")
+    return torch.nonzero(valid.reshape(-1)).squeeze(1)[:m_cap]
 
 
 def gather_flat(x, gather_idx):

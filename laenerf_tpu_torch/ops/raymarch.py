@@ -414,6 +414,8 @@ def march_rays_train_plain(rays_o, rays_d, occupancy, nears, fars, noises,
 
 
 def sample_positions(rays_o, rays_d, ts, bound: float):
-    """Clamped sample positions [N, S, 3] from t values [N, S]."""
-    p = rays_o[:, None, :] + ts[..., None] * rays_d[:, None, :]
+    """Clamped sample positions [..., 3] from t values [...]: rays_o and
+    rays_d [..., 3] broadcast against them (rays [N, 3] with ts [N, S]
+    take rays_o[:, None]; packed samples [M] their rays' rows)."""
+    p = rays_o + ts[..., None] * rays_d
     return torch.clamp(p, -bound, bound)

@@ -10,7 +10,11 @@ Tolerance: the scatter-adds (K1, K5, K6) at relative 1e-5 of the max (f32
 atomics sum in another order on every run); the gathers and the construct
 probes (K7) exactly (they move values, count, or sum terms that add
 exactly); the march (K8) bit for bit on its valid slots (it rounds each
-operation as the plain loop's separate kernels do); the distill render on the card against the CPU at 2e-3 absolute
+operation as the plain loop's separate kernels do); the packed composite
+(K9) against its plain version on the card at 1e-5 of the largest output,
+and its sigma gradients at 1e-5 of the terms they are the difference of
+(a warp scan and the suffix form round otherwise than cumsum and autograd);
+the distill render on the card against the CPU at 2e-3 absolute
 (bf16 network, as the port against JAX).
 """
 
@@ -18,8 +22,10 @@ import numpy as np
 import pytest
 import torch
 
+import _composite_cases
 import _march_cases
 import _worklist_cases
+from laenerf_tpu_torch.ops import composite
 from laenerf_tpu_torch.ops import construct_probes as cp
 from laenerf_tpu_torch.ops.gather import (grid_probe, grid_probe_plain,
                                           take_lanes, take_lanes_plain,
@@ -1100,3 +1106,168 @@ def test_march_kernel_host_waits(cuda):
         assert got[k] == ref[k], k
     assert {s["name"] for s in recs[0]["spans"]} == {"march.skip_field",
                                                      "march.kernel"}
+
+
+COMPOSITE_CASES = _composite_cases.composite_cases()
+K9_LAUNCHES = (composite.composite_rays_train_packed,
+               composite.composite_rays_train_packed_backward)
+
+
+def _k9_launches():
+    return tuple(f.launches for f in K9_LAUNCHES)
+
+
+def _k9_matches_plain(case, which, dev, before):
+    got, gs, gc, scale = _composite_cases.run_packed(
+        composite.composite_rays_train_packed, case, which, dev)
+    ref, rs, rc, _ = _composite_cases.run_packed(
+        composite.composite_rays_train_packed_plain, case, which, dev)
+    torch.cuda.synchronize()
+    assert _k9_launches() == (before[0] + 1, before[1] + 1)
+    _k9_close(got, gs, gc, ref, rs, rc, scale)
+    return ref, rc
+
+
+def _k9_close(got, gs, gc, ref, rs, rc, scale):
+    """K9's outputs and rgb gradients within 1e-5 of the plain version's
+    largest, its sigma gradients within 1e-5 of `scale`."""
+    for g, r, name in zip(got, ref, _composite_cases.OUTPUTS):
+        assert _rel_err(g, r) < 1e-5, name
+    assert _rel_err(gc, rc) < 1e-5
+    assert float((gs - rs).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["all", "image", "depth", "weights_sum"])
+@pytest.mark.parametrize("case", sorted(COMPOSITE_CASES))
+def test_composite_packed_kernel_matches_plain(cuda, case, which):
+    """K9 forward and backward against its plain version on the card (the
+    same expf), from each output alone and all three: early stops, empty
+    rays, rays the capacity cuts (to nothing too), single samples, runs
+    across warp rounds, the threshold met exactly; one launch of each."""
+    ref, rc = _k9_matches_plain(COMPOSITE_CASES[case], which, cuda,
+                                _k9_launches())
+    if case == "exact_thresh" and which in ("all", "image"):
+        assert bool((rc[6] != 0).all()) and bool((rc[7] == 0).all())
+
+
+def _lego_class_samples(dev, m_cap=262144):
+    """The NeRF cell's shape: 8,192 rays of one camera marched (K8) over a
+    128^3 lego-class occupancy at 1,024 events, the first m_cap samples
+    packed, the scene's density and colour at them."""
+    from laenerf_tpu_torch.ops.compaction import packed_sample_indices
+    from nerfbench.scenes import lego_class
+
+    pa = lego_class.prim_arrays(lego_class.lego_class_scene(), dev)
+    H = 128
+    c = (torch.arange(H, device=dev, dtype=torch.float32) + 0.5) * 2 / H - 1
+    cells = torch.stack(torch.meshgrid(c, c, c, indexing="ij"), -1)
+    sig_cells = lego_class._eval_scene(pa, cells.reshape(-1, 3))[0]
+    occ = (sig_cells > 0).to(torch.uint8).reshape(1, H, H, H)
+    ro, rd, noises = _march_cases.camera_rays(0, 8192, 1.0)
+    ro, rd = torch.from_numpy(ro).to(dev), torch.from_numpy(rd).to(dev)
+    cfg = raymarch.MarchConfig(bound=1.0, grid_size=H, max_steps=1024,
+                               march_iters=1024)
+    aabb = torch.tensor([-1.0] * 3 + [1.0] * 3, device=dev)
+    nears, fars = raymarch.near_far_from_aabb(ro, rd, aabb)
+    march = raymarch.march_rays_train(ro, rd, occ, nears, fars,
+                                      torch.from_numpy(noises).to(dev), cfg)
+    idx = packed_sample_indices(march["valid"], m_cap)
+    ray = idx // cfg.march_iters
+    ts = march["ts"].reshape(-1)[idx]
+    dts = march["dts"].reshape(-1)[idx]
+    sig, rgb = lego_class._eval_scene(pa, ro[ray] + ts[:, None] * rd[ray])
+    counts = march["n_samples"]
+    return (sig, rgb, dts, ts, torch.cumsum(counts, 0), counts,
+            march["t0"]), ray
+
+
+@pytest.mark.cuda
+def test_composite_packed_kernel_at_the_ngp_shape(cuda):
+    """K9 against its plain version at the NeRF cell's shape (8,192 rays,
+    262,144 samples of capacity) on a lego-class scene, the gradients from
+    all three outputs, at the tolerances of the small cases."""
+    args, ray = _lego_class_samples(cuda)
+    sig, rgb, dts, ts, ends, counts, t0 = args
+    assert int(counts.max()) > 32 and sig.shape[0] > 50000
+    cots = [c.to(cuda) for c in _composite_cases.cotangents(8192, "all")]
+    res = []
+    for fn in (composite.composite_rays_train_packed,
+               composite.composite_rays_train_packed_plain):
+        s = sig.clone().requires_grad_(True)
+        c = rgb.clone().requires_grad_(True)
+        outs = fn(s, c, *args[2:], 1e-4)
+        sum((o * g).sum() for o, g in zip(outs, cots)).backward()
+        res.append(([o.detach() for o in outs], s.grad, c.grad))
+    assert float(res[1][0][0].max()) > 0.99  # rays stop inside the scene
+    scale = _composite_cases.sigma_grad_scale(ts, dts, rgb, ray, t0, "all")
+    _k9_close(*res[0], *res[1], scale)
+
+
+@pytest.mark.cuda
+def test_composite_packed_kernel_host_waits(cuda):
+    """K9's forward and backward make no host wait."""
+    case = COMPOSITE_CASES["ragged"]
+    sig, rgb, dts, ts, valid, t0 = (torch.from_numpy(a).to(cuda) for a in
+                                    case[:6])
+    (s, c, d, t), ends, counts, _ = _composite_cases.packed(
+        sig, rgb, dts, ts, valid, None)
+    s.requires_grad_(True)
+    c.requires_grad_(True)
+    cots = [g.to(cuda) for g in _composite_cases.cotangents(len(t0), "all")]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs = composite.composite_rays_train_packed(s, c, d, t, ends,
+                                                     counts, t0, 1e-4)
+        sum((o * g).sum() for o, g in zip(outs, cots)).backward()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert s.grad is not None and c.grad is not None
+
+
+@pytest.mark.cuda
+def test_train_step_through_k9_card_vs_cpu(cuda):
+    """One train_step on a small NeRF from the same parameters, batch and
+    noises: K9's forward and backward launch once each on the card, and
+    the loss (within 1e-3) and every parameter's gradient (within 2e-2 of
+    its largest element: bf16 network) match the CPU's plain path."""
+    from laenerf_tpu_torch.models import NeRFConfig, RenderConfig, nerf_init
+    from laenerf_tpu_torch.train.trainer import (configure_matmul_precision,
+                                                 make_optimizer, train_step)
+
+    configure_matmul_precision()
+    mcfg = NeRFConfig(num_levels=4, log2_hashmap_size=12)
+    rcfg = RenderConfig(grid_size=32, max_steps=128, march_iters=128,
+                        m_cap_per_ray=16)
+    g = torch.Generator().manual_seed(6)
+    net0 = nerf_init(mcfg, device="cpu", generator=g)
+    N = 2048
+    inds = torch.randint(0, 64 * 64, (N,), generator=g)
+    pixels = torch.rand((N, 4), generator=g)
+    bg = torch.rand((N, 3), generator=g)
+    noises = torch.rand((N,), generator=g)
+    occ = torch.ones((1, 32, 32, 32), dtype=torch.uint8)
+    pose = torch.tensor([[1.0, 0, 0, 0], [0, 1, 0, 0], [0, 0, 1, -2.0],
+                         [0, 0, 0, 1.0]])
+    intr = torch.tensor([64.0, 64.0, 32.0, 32.0])
+    res = []
+    for dev in (cuda, torch.device("cpu")):
+        net = nerf_init(mcfg, device=dev)
+        net.load_state_dict(net0.state_dict())
+        ema = nerf_init(mcfg, device=dev).requires_grad_(False)
+        opt, sched = make_optimizer(net.parameters(), 1e-2, 100)
+        before = _k9_launches()
+        aux = train_step(net, ema, opt, sched, occ.to(dev), pose.to(dev),
+                         intr.to(dev), inds.to(dev), pixels.to(dev),
+                         render_cfg=rcfg, ema_decay=0.95, has_alpha=True,
+                         bg_white=False, H=64, W=64, bg=bg.to(dev),
+                         noises=noises.to(dev))
+        launched = tuple(a - b for a, b in zip(_k9_launches(), before))
+        res.append((aux["loss"].item(), launched,
+                    {n: p.grad.cpu() for n, p in net.named_parameters()}))
+    assert res[0][1] == (1, 1) and res[1][1] == (0, 0)
+    assert abs(res[0][0] - res[1][0]) <= 1e-3 * abs(res[1][0])
+    for name, ref in res[1][2].items():
+        assert _rel_err(res[0][2][name], ref) < 2e-2, name

@@ -26,6 +26,7 @@ from laenerf_tpu_torch.ops import composite as tcompo
 from laenerf_tpu_torch.ops import raymarch as tmarch
 from laenerf_tpu_torch.ops import sh as tsh
 
+import _composite_cases
 from _march_cases import blob_grid, march_cases
 
 
@@ -147,7 +148,8 @@ def test_march_rays_train_agreement(fixture):
         assert int(got["n_samples"][0]) == 0
     pos_j = jmarch.sample_positions(jnp.asarray(ro), jnp.asarray(rd),
                                     ref["ts"], b)
-    pos_t = tmarch.sample_positions(_t(ro), _t(rd), got["ts"], b)
+    pos_t = tmarch.sample_positions(_t(ro)[:, None], _t(rd)[:, None],
+                                    got["ts"], b)
     np.testing.assert_allclose(pos_t.numpy()[v_t & v_j],
                                np.asarray(pos_j)[v_t & v_j], rtol=1e-5,
                                atol=1e-5)
@@ -299,3 +301,105 @@ def test_composite_chunk():
         np.testing.assert_allclose(carry_t[k].numpy(),
                                    np.asarray(carry_j[k]), rtol=1e-5,
                                    atol=1e-6)
+
+
+@pytest.mark.parametrize("which", ["all", "image", "depth", "weights_sum"])
+@pytest.mark.parametrize("case", sorted(_composite_cases.composite_cases()))
+def test_composite_packed_plain_matches_padded(case, which):
+    """The packed composite's plain version (K9's CPU twin) against
+    composite_rays_train over the padded grid with the samples past the
+    capacity masked out: outputs, and the gradients to the packed sigmas and
+    rgbs from each output alone and from all three."""
+    c = _composite_cases.composite_cases()[case]
+    ref, rs, rc = _composite_cases.run_padded(c, which, "cpu")
+    got, gs, gc, _ = _composite_cases.run_packed(
+        tcompo.composite_rays_train_packed, c, which, "cpu")
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g.numpy(), r.numpy(), rtol=1e-6,
+                                   atol=1e-7)
+    for g, r in ((gs, rs), (gc, rc)):
+        scale = float(r.abs().max()) or 1.0
+        np.testing.assert_allclose(g.numpy(), r.numpy(), rtol=0,
+                                   atol=1e-6 * scale)
+    if case == "exact_thresh" and which in ("all", "image"):
+        # ray 0: the sample at the threshold is kept, the next is not
+        assert bool((gc[6] != 0).all()) and bool((gc[7] == 0).all())
+    if case in ("cut", "single"):
+        assert int(c[4].sum()) > c[6]  # the capacity cut samples
+    assert int(c[4].sum()) == 0 or float(ref[0].max()) > 0
+
+
+def _render_train_padded(renderer, net, occ, ro, rd, rcfg, noises, bg):
+    """render_rays_train as it composited before the packed path: samples
+    scattered back to the padded [N, S] grid, composite_rays_train over the
+    evaluated ones."""
+    from laenerf_tpu_torch.models.nerf import nerf_forward
+
+    N, S, cfg = ro.shape[0], rcfg.march_iters, rcfg.march_cfg
+    aabb = torch.tensor([-cfg.bound] * 3 + [cfg.bound] * 3)
+    nears, _ = tmarch.near_far_from_aabb(ro, rd, aabb, rcfg.min_near)
+    fars = tmarch.near_far_from_aabb(ro, rd, aabb, rcfg.min_near)[1]
+    with torch.no_grad():
+        march = tmarch.march_rays_train(ro, rd, occ, nears, fars, noises, cfg)
+    ts, dts, valid = march["ts"], march["dts"], march["valid"]
+    xyz = tmarch.sample_positions(ro[:, None], rd[:, None], ts,
+                                  cfg.bound).reshape(-1, 3)
+    dirs = rd[:, None, :].expand(N, S, 3).reshape(-1, 3)
+    m_cap = renderer.train_capacity(N, rcfg)
+    gi, gm, dest = tcomp.compact_samples(valid, m_cap)
+    n = int(gm.sum())
+    sig, rgb = nerf_forward(net, xyz[gi[:n]], dirs[gi[:n]])
+    both = tcomp.scatter_back(torch.cat([sig[:, None], rgb], dim=1), dest,
+                              (N, S), gather_idx=gi[:n], gather_mask=gm[:n])
+    ws, depth, image = tcompo.composite_rays_train(
+        both[..., 0], both[..., 1:], dts, ts, valid & (dest < m_cap),
+        march["t0"], rcfg.t_thresh)
+    return {"image": image + (1.0 - ws)[:, None] * bg, "depth": depth,
+            "weights_sum": ws,
+            "ray_ok": ~torch.any(valid & (dest >= m_cap), dim=1)}
+
+
+@pytest.mark.parametrize("m_cap_per_ray", [64, 4])  # 4: the capacity cuts
+def test_render_train_packed_matches_padded(m_cap_per_ray):
+    """render_rays_train on the packed path against the padded path it
+    replaced, on the CPU: image, depth, weights_sum and ray_ok, and every
+    parameter's gradient from all three outputs."""
+    from laenerf_tpu_torch.models import NeRFConfig, RenderConfig
+    from laenerf_tpu_torch.models import renderer
+    from laenerf_tpu_torch.models.nerf import NeRFNetwork
+
+    _, kw, occ, ro, rd, noises = march_cases()[4]  # blobs
+    net = NeRFNetwork(NeRFConfig(bound=1.0, num_levels=4,
+                                 log2_hashmap_size=12), device="cpu",
+                      generator=torch.Generator().manual_seed(3))
+    rcfg = RenderConfig(**kw, m_cap_per_ray=m_cap_per_ray)
+    bg = torch.rand((ro.shape[0], 3),
+                    generator=torch.Generator().manual_seed(4))
+    cot = torch.randn((ro.shape[0], 5),
+                      generator=torch.Generator().manual_seed(5))
+
+    def run(render):
+        net.zero_grad(set_to_none=True)
+        out = render()
+        ((out["image"] * cot[:, :3]).sum() + (out["depth"] * cot[:, 3]).sum()
+         + (out["weights_sum"] * cot[:, 4]).sum()).backward()
+        return out, {n: p.grad.clone() for n, p in net.named_parameters()}
+
+    got, grads = run(lambda: renderer.render_rays_train(
+        net, _t(occ), _t(ro), _t(rd), render_cfg=rcfg, bg_color=bg,
+        noises=_t(noises)))
+    ref, ref_grads = run(lambda: _render_train_padded(
+        renderer, net, _t(occ), _t(ro), _t(rd), rcfg, _t(noises), bg))
+    assert torch.equal(got["ray_ok"], ref["ray_ok"])
+    assert bool(ref["ray_ok"].all()) == (m_cap_per_ray == 64)
+    assert float(ref["weights_sum"].detach().max()) > 0.1
+    for k in ("image", "depth", "weights_sum"):
+        np.testing.assert_allclose(got[k].detach().numpy(),
+                                   ref[k].detach().numpy(), rtol=1e-6,
+                                   atol=1e-6)
+    assert grads.keys() == ref_grads.keys()
+    for n, g in ref_grads.items():
+        scale = float(g.abs().max())
+        assert scale > 0, n
+        np.testing.assert_allclose(grads[n].numpy(), g.numpy(), rtol=0,
+                                   atol=1e-5 * scale, err_msg=n)
