@@ -17,7 +17,7 @@ import dataclasses
 
 import torch
 
-from ..utils.timers import count
+from ..ops.compaction import packed_sample_indices
 
 
 @dataclasses.dataclass
@@ -127,8 +127,6 @@ def update_occupancy_partial(state: OccupancyState, density_fn, *,
     write with duplicate indices is unordered on the card). The jitter of
     cascade c has H^3/8 + H^3/16 rows: sweep cells, then window slots.
     """
-    from ..ops.compaction import compact_samples
-
     cas_n, H = state.density_grid.shape[0], state.density_grid.shape[1]
     dev = state.density_grid.device
     n_cells = H ** 3
@@ -152,10 +150,8 @@ def update_occupancy_partial(state: OccupancyState, density_fn, *,
         total = torch.clamp(rank[-1] + 1, min=1)
         start = (state.iter_density * cap_o) % total
         win = occ_mask & (torch.remainder(rank - start, total) < cap_o)
-        gidx, gmask, _ = compact_samples(win.reshape(n_cells // H, H), cap_o)
-        count("sync.occupancy_count")
-        n_occ = int(gmask.sum())
-        occ_flat = gidx[:n_occ]
+        occ_flat = packed_sample_indices(win, cap_o)
+        n_occ = occ_flat.shape[0]
         occ_coords = torch.stack(
             [occ_flat // (H * H), (occ_flat // H) % H, occ_flat % H], dim=-1)
 

@@ -3,9 +3,11 @@
 
   * train: march (no gradient) -> pack the valid samples -> one network
     eval -> composite each ray's run of packed samples (K9 on the card).
-  * inference: a host loop of rounds; each round marches K_march events per
-    ray, packs the occupied ones into K sample slots, evaluates the network
-    on the compacted valid samples and folds them into per-ray accumulators.
+  * inference and distillation: one host loop of rounds (_render_rounds);
+    each round marches K_march events per ray, packs the occupied ones into
+    K sample slots, evaluates the network on the compacted valid samples
+    and folds them into per-ray accumulators (composite_chunk; the distill
+    path also sums the samples inside its edit grid apart).
 
 The JAX package picks a compacted-eval capacity from a ladder at run time
 because its shapes are static. The chosen rung is always >= the valid count
@@ -21,16 +23,17 @@ import dataclasses
 
 import torch
 
-from ..ops.compaction import (compact_samples, gather_flat,
-                              packed_sample_indices, scatter_back)
+from ..ops.compaction import (packed_sample_indices, sample_destinations,
+                              scatter_back)
 # composite_rays_train is not called here; it stays bound in this module,
 # where nerfbench's train cell patches it by name
 from ..ops.composite import (composite_chunk,  # noqa: F401
                              composite_rays_train,
                              composite_rays_train_packed)
 from ..ops.raymarch import (MarchConfig, build_skip_field, make_march_event,
-                            march_rays_train, near_far_from_aabb,
-                            sample_positions, sph_from_ray)
+                            march_origin, march_rays_train,
+                            near_far_from_aabb, sample_positions,
+                            sph_from_ray)
 from ..utils.timers import count, span
 from .nerf import NeRFNetwork, nerf_background, nerf_forward
 
@@ -135,8 +138,8 @@ def render_rays_train(net: NeRFNetwork, occupancy, rays_o, rays_d, *,
         idx = packed_sample_indices(valid, m_cap)
         count("render.samples", idx.shape[0])
         ray = idx // S
-        ts_p = gather_flat(ts.reshape(-1), idx)
-        dts_p = gather_flat(dts.reshape(-1), idx)
+        ts_p = ts.reshape(-1)[idx]
+        dts_p = dts.reshape(-1)[idx]
         dirs = rays_d[ray]
         xyz = sample_positions(rays_o[ray], dirs, ts_p, cfg.bound)
         sigmas, rgbs = nerf_forward(net, xyz, dirs)
@@ -226,43 +229,42 @@ def _eval_compacted(net, render_cfg: RenderConfig, rays_o, rays_d, ts,
     """
     N, K = ts.shape
     m_cap = (N * K) // max(render_cfg.infer_compact_factor, 1)
-    gather_idx, gather_mask, dest = compact_samples(valid, m_cap)
-    n = int(gather_mask.sum())
-    idx = gather_idx[:n]
+    idx = packed_sample_indices(valid, m_cap)
     ray_ids = idx // K
-    ts_c = gather_flat(ts.reshape(-1), idx)
+    ts_c = ts.reshape(-1)[idx]
     ro_c, rd_c = rays_o[ray_ids], rays_d[ray_ids]
     xyz_c = torch.clamp(ro_c + ts_c[:, None] * rd_c, -render_cfg.bound,
                         render_cfg.bound)
     sig_c, rgb_c = nerf_forward(net, xyz_c, rd_c, gather_table=gather_table)
     sig_c = sig_c * render_cfg.density_scale
+    dest = sample_destinations(valid, m_cap)
     both = scatter_back(torch.cat([sig_c[:, None], rgb_c], dim=1), dest,
                         (N, K))
     sig, rgb = both[..., 0], both[..., 1:]
-    dropped = valid & (dest >= m_cap)
-    valid_eval = valid & (dest < m_cap)
+    valid_eval = dest < m_cap
+    dropped = valid & ~valid_eval
     first_drop_ts = torch.amin(torch.where(dropped, ts, torch.inf), dim=1)
     t_next = torch.where(torch.any(dropped, dim=1), first_drop_ts, t_new)
     return sig, rgb, valid_eval, t_next
 
 
-@torch.no_grad()
-def render_rays_infer(net: NeRFNetwork, occupancy, rays_o, rays_d, *,
-                      render_cfg: RenderConfig, bg_color=None,
-                      perturb: bool = False, noises=None, generator=None,
-                      skip_flat=None, gather_table=None):
-    """Inference-path rendering as a host loop of march rounds.
+def _render_rounds(net, march_grid, rays_o, rays_d, render_cfg: RenderConfig,
+                   *, perturb, noises, generator, skip_flat, gather_table,
+                   edit_grid=None):
+    """The inference and distill renders' host loop of march rounds.
 
     Rays die by transmittance; the loop ends when no ray is alive or after
     max_rounds = (max_steps // K) * infer_compact_factor rounds (rewinds
     consume rounds; the factor keeps the evaluated-sample budget at
-    N * max_steps).
+    N * max_steps). Each round marches (_march_round), evaluates the
+    compacted samples (_eval_compacted) and composites (composite_chunk).
 
-    skip_flat: optional prebuilt flat skip field (build_march_tables), so a
-      frame's chunks share one. gather_table: optional pre-rounded encoder
-      table (models/nerf.gather_table_for), likewise once per frame.
-    Returns dict(image [N,3], depth [N], weights_sum [N], nears [N],
-      fars [N], rounds).
+    march_grid: the grid whose skip field is marched when skip_flat (a
+      prebuilt flat field) is None. edit_grid: optional [CAS, H, H, H]
+      uint8; with it the samples in the grid are flagged, their weights
+      and depths summed apart, and depth is absolute (from t = 0) instead
+      of from the perturbed origin t0.
+    Returns (carry dict of composite_chunk, nears [N], fars [N], rounds).
     """
     N = rays_o.shape[0]
     dev = rays_o.device
@@ -271,34 +273,55 @@ def render_rays_infer(net: NeRFNetwork, occupancy, rays_o, rays_d, *,
     K_march = render_cfg.infer_march_events or K
     nears, fars = near_far_from_aabb(rays_o, rays_d, _aabb(cfg.bound, dev),
                                      render_cfg.min_near)
-    noises = _noises(N, perturb, noises, generator, dev)
-    t0 = nears + torch.clamp(nears * cfg.dt_gamma, cfg.dt_min,
-                             cfg.dt_max) * noises
+    t0 = march_origin(nears, _noises(N, perturb, noises, generator, dev), cfg)
     if skip_flat is None:
-        skip_flat = build_skip_field(occupancy, bound=cfg.bound).reshape(-1)
-    event = make_march_event(rays_o, rays_d, skip_flat, cfg)
+        skip_flat = build_march_tables(march_grid, render_cfg=render_cfg)
+    with_edit = edit_grid is not None
+    event = make_march_event(
+        rays_o, rays_d, skip_flat, cfg,
+        edit_flat=edit_grid.reshape(-1) if with_edit else None)
 
+    zeros = torch.zeros((N,), dtype=torch.float32, device=dev)
+    acc = {"T": torch.ones_like(zeros), "ws": zeros, "depth": zeros,
+           "rgb": torch.zeros((N, 3), dtype=torch.float32, device=dev)}
+    if with_edit:
+        acc.update(ws_edit=zeros, depth_edit=zeros)
     t = t0
-    acc = {
-        "T": torch.ones((N,), dtype=torch.float32, device=dev),
-        "ws": torch.zeros((N,), dtype=torch.float32, device=dev),
-        "depth": torch.zeros((N,), dtype=torch.float32, device=dev),
-        "rgb": torch.zeros((N, 3), dtype=torch.float32, device=dev),
-    }
     max_rounds = (cfg.max_steps // K) * max(render_cfg.infer_compact_factor, 1)
     rounds = 0
     while rounds < max_rounds:
         alive = (acc["T"] >= render_cfg.t_thresh) & (t < fars)
         if not bool(torch.any(alive)):
             break
-        t_new, ts, dt, valid, _ = _march_round(event, t, fars, alive, K,
-                                               K_march)
-        sig, rgb, valid_e, t = _eval_compacted(
+        t_new, ts, dt, valid, eocc = _march_round(event, t, fars, alive, K,
+                                                  K_march, with_edit)
+        sig, rgb, valid, t = _eval_compacted(
             net, render_cfg, rays_o, rays_d, ts, valid, t_new, gather_table)
-        acc = composite_chunk(acc, sig, rgb, dt, ts, valid_e, t0,
-                              render_cfg.t_thresh)
+        acc = composite_chunk(acc, sig, rgb, dt, ts, valid,
+                              None if with_edit else t0, render_cfg.t_thresh,
+                              edit=eocc if with_edit else None)
         rounds += 1
+    return acc, nears, fars, rounds
 
+
+@torch.no_grad()
+def render_rays_infer(net: NeRFNetwork, occupancy, rays_o, rays_d, *,
+                      render_cfg: RenderConfig, bg_color=None,
+                      perturb: bool = False, noises=None, generator=None,
+                      skip_flat=None, gather_table=None):
+    """Inference-path rendering as a host loop of march rounds
+    (_render_rounds).
+
+    skip_flat: optional prebuilt flat skip field (build_march_tables), so a
+      frame's chunks share one. gather_table: optional pre-rounded encoder
+      table (models/nerf.gather_table_for), likewise once per frame.
+    Returns dict(image [N,3], depth [N], weights_sum [N], nears [N],
+      fars [N], rounds).
+    """
+    acc, nears, fars, rounds = _render_rounds(
+        net, occupancy, rays_o, rays_d, render_cfg, perturb=perturb,
+        noises=noises, generator=generator, skip_flat=skip_flat,
+        gather_table=gather_table)
     image = acc["rgb"] + (1.0 - acc["ws"])[:, None] * _background(
         net, rays_o, rays_d, bg_color)
     return {
@@ -315,32 +338,6 @@ def build_march_tables(occupancy, *, render_cfg: RenderConfig):
     """Per-frame flat chebyshev skip field, shared by a frame's chunks."""
     return build_skip_field(occupancy,
                             bound=render_cfg.march_cfg.bound).reshape(-1)
-
-
-def _composite_distill(acc, ws_edit, depth_edit, sig, rgb, dt, ts, valid,
-                       eocc, t_thresh: float):
-    """One distill round's accumulation: transmittance compositing plus the
-    sums of the weights and depths of edit-flagged samples. Depth here is
-    the absolute ray parameter t_abs = ts + dt."""
-    sd = torch.where(valid, sig * dt, 0.0)
-    csum = torch.cumsum(sd, dim=1)
-    T_in = acc["T"][:, None]
-    T_incl = T_in * torch.exp(-csum)
-    T_excl = T_in * torch.exp(-(csum - sd))
-    alpha = 1.0 - torch.exp(-sd)
-    weights = alpha * T_excl
-    prev_T = torch.cat([T_in, T_incl[:, :-1]], dim=1)
-    weights = weights * (prev_T >= t_thresh).to(weights.dtype)
-    t_abs = ts + dt
-    e = (eocc & valid).to(weights.dtype)
-    new_acc = {
-        "T": T_incl[:, -1],
-        "ws": acc["ws"] + torch.sum(weights, dim=1),
-        "depth": acc["depth"] + torch.sum(weights * t_abs, dim=1),
-        "rgb": acc["rgb"] + torch.sum(weights[..., None] * rgb, dim=1),
-    }
-    return (new_acc, ws_edit + torch.sum(weights * e, dim=1),
-            depth_edit + torch.sum(weights * t_abs * e, dim=1))
 
 
 @torch.no_grad()
@@ -362,46 +359,16 @@ def render_rays_distill(net: NeRFNetwork, occupancy, edit_grid, rays_o,
     Returns dict(image [N,3] (no background), depth, depth_edit, weights,
       weights_edit, nears [N], x_term [N,3], min_near 0-d).
     """
-    N = rays_o.shape[0]
-    dev = rays_o.device
-    cfg = render_cfg.march_cfg
-    K = render_cfg.infer_chunk_events
-    K_march = render_cfg.infer_march_events or K
-    nears, fars = near_far_from_aabb(rays_o, rays_d, _aabb(cfg.bound, dev),
-                                     render_cfg.min_near)
-    noises = _noises(N, perturb, noises, generator, dev)
-    t0 = nears + torch.clamp(nears * cfg.dt_gamma, cfg.dt_min,
-                             cfg.dt_max) * noises
-    if skip_flat is None:
-        march_src = edit_grid if grow_grid else occupancy
-        skip_flat = build_skip_field(march_src, bound=cfg.bound).reshape(-1)
-    event = make_march_event(rays_o, rays_d, skip_flat, cfg,
-                             edit_flat=edit_grid.reshape(-1))
-
-    t = t0
-    zeros = torch.zeros((N,), dtype=torch.float32, device=dev)
-    acc = {"T": torch.ones_like(zeros), "ws": zeros, "depth": zeros,
-           "rgb": torch.zeros((N, 3), dtype=torch.float32, device=dev)}
-    ws_edit, depth_edit = zeros, zeros
-    max_rounds = (cfg.max_steps // K) * max(render_cfg.infer_compact_factor, 1)
-    for _ in range(max_rounds):
-        alive = (acc["T"] >= render_cfg.t_thresh) & (t < fars)
-        if not bool(torch.any(alive)):
-            break
-        t_new, ts, dt, valid, eocc = _march_round(event, t, fars, alive, K,
-                                                  K_march, with_edit=True)
-        sig, rgb, valid, t = _eval_compacted(
-            net, render_cfg, rays_o, rays_d, ts, valid, t_new, gather_table)
-        acc, ws_edit, depth_edit = _composite_distill(
-            acc, ws_edit, depth_edit, sig, rgb, dt, ts, valid, eocc,
-            render_cfg.t_thresh)
-
+    acc, nears, _, _ = _render_rounds(
+        net, edit_grid if grow_grid else occupancy, rays_o, rays_d,
+        render_cfg, perturb=perturb, noises=noises, generator=generator,
+        skip_flat=skip_flat, gather_table=gather_table, edit_grid=edit_grid)
     return {
         "image": acc["rgb"],
         "depth": acc["depth"],
-        "depth_edit": depth_edit,
+        "depth_edit": acc["depth_edit"],
         "weights": acc["ws"],
-        "weights_edit": ws_edit,
+        "weights_edit": acc["ws_edit"],
         "x_term": rays_o + acc["depth"][:, None] * rays_d,
         "nears": nears,
         "min_near": torch.amin(nears),

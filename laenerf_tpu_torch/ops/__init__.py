@@ -12,4 +12,4 @@ from .hashgrid import (HashGridSpec, hashgrid_encode, hashgrid_init,
 from .raymarch import (MarchConfig, near_far_from_aabb, march_rays_train,
                        sph_from_ray)
 from .composite import composite_rays_train, composite_chunk
-from .compaction import compact_samples, scatter_back
+from .compaction import packed_sample_indices, scatter_back

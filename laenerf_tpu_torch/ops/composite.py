@@ -3,11 +3,12 @@
 Transmittance is exp(-cumsum(sigma * dt)); early termination is a keep-mask:
 a sample contributes iff the transmittance after the previous sample was
 still >= T_thresh ("accumulate, then break"). `composite_rays_train` and
-`composite_chunk` take padded [N, S] sample grids and autograd gives their
-gradient, including the depth term. The train path composites its packed
-samples with `composite_rays_train_packed`: kernel K9 (csrc/composite.cu),
-forward and analytic backward, on the card, and on the CPU its plain
-version, which unpacks them to a padded grid for `composite_rays_train`.
+`composite_chunk` (one round of the inference and distill renders) take
+padded [N, S] sample grids and autograd gives their gradient, including
+the depth term. The train path composites its packed samples with
+`composite_rays_train_packed`: kernel K9 (csrc/composite.cu), forward
+and analytic backward, on the card, and on the CPU its plain version,
+which unpacks them to a padded grid for `composite_rays_train`.
 """
 
 import torch
@@ -45,11 +46,17 @@ def composite_rays_train(sigmas, rgbs, dts, ts, valid, t0, T_thresh=1e-4):
     return weights_sum, depth, image
 
 
-def composite_chunk(carry, sigmas, rgbs, dts, ts, valid, t0, T_thresh=1e-4):
-    """One inference compositing round over K samples per ray.
+def composite_chunk(carry, sigmas, rgbs, dts, ts, valid, t0, T_thresh=1e-4,
+                    edit=None):
+    """One render round's compositing over K samples per ray: the
+    inference and distill paths' accumulator.
 
-    carry: dict with 'T' [N], 'ws' [N], 'depth' [N], 'rgb' [N, 3]; returns
-    the updated dict.
+    carry: dict with 'T' [N], 'ws' [N], 'depth' [N], 'rgb' [N, 3] (and,
+    with edit flags, 'ws_edit' and 'depth_edit' [N]); returns the updated
+    dict. t0 [N]: the depth origin (depth is the sum of w * (t - t0)), or
+    None for the absolute depth. edit: optional [N, K] bool flags of
+    samples in the edit grid, whose weights and depths are also summed
+    apart.
     """
     sd = torch.where(valid, sigmas * dts, 0.0)
     csum = torch.cumsum(sd, dim=1)
@@ -62,13 +69,19 @@ def composite_chunk(carry, sigmas, rgbs, dts, ts, valid, t0, T_thresh=1e-4):
     prev_T = torch.cat([T_in, T_incl[:, :-1]], dim=1)
     weights = weights * (prev_T >= T_thresh).to(weights.dtype)
 
-    cum_depth = (ts + dts) - t0[:, None]
-    return {
+    depth = ts + dts if t0 is None else (ts + dts) - t0[:, None]
+    out = {
         "T": T_incl[:, -1],
         "ws": carry["ws"] + weights.sum(dim=1),
-        "depth": carry["depth"] + (weights * cum_depth).sum(dim=1),
+        "depth": carry["depth"] + (weights * depth).sum(dim=1),
         "rgb": carry["rgb"] + (weights[..., None] * rgbs).sum(dim=1),
     }
+    if edit is not None:
+        e = (edit & valid).to(weights.dtype)
+        out["ws_edit"] = carry["ws_edit"] + (weights * e).sum(dim=1)
+        out["depth_edit"] = (carry["depth_edit"]
+                             + (weights * depth * e).sum(dim=1))
+    return out
 
 
 def composite_rays_train_packed(sigmas, rgbs, dts, ts, ends, counts, t0,

@@ -7,8 +7,8 @@ march is kernel K8 (csrc/raymarch.cu), a thread a ray. Its plain version,
 `march_rays_train_plain`, runs the JAX `lax.scan` as a Python loop over
 events vectorized over all rays, in blocks of 32 with an "any ray alive"
 check between blocks; the wrapper takes it for CPU tensors only. The
-inference and distill marches (models/renderer.py) call `make_march_event`
-in loops of their own.
+inference and distill renders (models/renderer.py) call `make_march_event`
+in one round loop of their own.
 
 Zero direction components rely on IEEE 1/0 = inf, as in the JAX package.
 """
@@ -276,13 +276,18 @@ def _march_block(S):
     return MARCH_BLOCK if S % MARCH_BLOCK == 0 and S > MARCH_BLOCK else S
 
 
+def march_origin(nears, noises, cfg: MarchConfig):
+    """The perturbed march origins t0 [N]: nears plus noises [N] in [0, 1)
+    of the first step."""
+    return nears + torch.clamp(nears * cfg.dt_gamma, cfg.dt_min,
+                               cfg.dt_max) * noises
+
+
 def _march_inputs(occupancy, nears, noises, cfg: MarchConfig):
     """The flat skip field and the perturbed origins t0 [N]."""
     with span("march.skip_field"):
         skip_flat = build_skip_field(occupancy, bound=cfg.bound).reshape(-1)
-    t0 = nears + torch.clamp(nears * cfg.dt_gamma, cfg.dt_min,
-                             cfg.dt_max) * noises
-    return skip_flat, t0
+    return skip_flat, march_origin(nears, noises, cfg)
 
 
 def march_rays_train(rays_o, rays_d, occupancy, nears, fars, noises,

@@ -78,9 +78,10 @@ def packed(sig, rgb, dts, ts, valid, m_cap):
     """The padded grid's samples packed as the train path packs them:
     (sigmas, rgbs, dts, ts) [M] rows, ends [N] int64, counts [N] int32,
     and the flat slot of each packed sample."""
-    idx = torch.nonzero(valid.reshape(-1)).squeeze(1)
-    if m_cap is not None:
-        idx = idx[:m_cap]
+    from laenerf_tpu_torch.ops.compaction import packed_sample_indices
+
+    idx = packed_sample_indices(valid, valid.numel() if m_cap is None
+                                else m_cap)
     counts = valid.sum(dim=1).to(torch.int32)
     rows = [x.reshape((-1,) + x.shape[2:])[idx] for x in (sig, rgb, dts, ts)]
     return rows, torch.cumsum(counts, dim=0), counts, idx

@@ -97,6 +97,33 @@ def max_rel_err(got, ref):
     return float(np.abs(got - ref).max() / max(np.abs(ref).max(), 1e-30))
 
 
+def norm_err(got, ref):
+    """||got - ref|| over ||ref|| (Frobenius norms, float64)."""
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    return float(np.linalg.norm(got - ref) / max(np.linalg.norm(ref), 1e-30))
+
+
+def ulp_moves(*arrays):
+    """The inputs of a rounding control: for each array in turn, the
+    arrays with that one moved one float32 ulp up, then one down (the
+    others as given); 2 * len(arrays) tuples of float32 arrays."""
+    arrays = [np.asarray(a, np.float32) for a in arrays]
+    out = []
+    for i, a in enumerate(arrays):
+        for toward in (np.inf, -np.inf):
+            moved = list(arrays)
+            moved[i] = np.nextafter(a, np.float32(toward))
+            out.append(tuple(moved))
+    return out
+
+
+def rounding_bound(ref, controls, factor=2.0):
+    """The norm-wise bound that a rounding control supports: `factor`
+    times the largest norm_err of the controls (the reference rerun with
+    one float32 rounding moved) against the reference itself."""
+    return factor * max(norm_err(c, ref) for c in controls)
+
+
 def tiny_scene_trainer(tmp_path, seed=51, H=24, W=24, n_train=3, steps=4):
     """The port's Trainer on a tiny procedural scene (CPU): seeded params,
     the blob occupancy grid, then a few train steps. Returns (trainer,

@@ -207,20 +207,24 @@ def test_render_train_ignores_invalid_slots(monkeypatch):
 
 @pytest.mark.parametrize("m_cap", [40, 16])  # 16 < n_valid: overflow
 def test_compact_and_scatter_back(m_cap):
+    """packed_sample_indices, sample_destinations and scatter_back (and its
+    gradient to the values) against JAX's compact_samples, gather_flat
+    and scatter_back."""
     rng = np.random.RandomState(8)
     N, S = 8, 9
     valid = rng.rand(N, S) > 0.45
     vals = rng.randn(N * S, 4).astype(np.float32)
     gi_j, gm_j, dest_j = jcomp.compact_samples(jnp.asarray(valid), m_cap)
-    gi_t, gm_t, dest_t = tcomp.compact_samples(_t(valid), m_cap)
-    np.testing.assert_array_equal(dest_t.numpy(), np.asarray(dest_j))
-    np.testing.assert_array_equal(gm_t.numpy(), np.asarray(gm_j))
     m = np.asarray(gm_j)
-    np.testing.assert_array_equal(gi_t.numpy()[m], np.asarray(gi_j)[m])
+    idx = tcomp.packed_sample_indices(_t(valid), m_cap)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(gi_j)[m])
+    dest_t = tcomp.sample_destinations(_t(valid), m_cap)
+    np.testing.assert_array_equal(dest_t.numpy(), np.asarray(dest_j))
 
     comp_j = jcomp.gather_flat(jnp.asarray(vals), gi_j)
-    comp_t = tcomp.gather_flat(_t(vals), gi_t)
+    comp_t = _t(vals)[idx]
     n = int(m.sum())
+    np.testing.assert_array_equal(comp_t.numpy(), np.asarray(comp_j)[:n])
     cot = rng.randn(N, S, 4).astype(np.float32)
 
     def loss_j(v):
@@ -229,15 +233,12 @@ def test_compact_and_scatter_back(m_cap):
 
     back_j = jcomp.scatter_back(comp_j, dest_j, (N, S))
     g_j = np.asarray(jax.grad(loss_j)(comp_j))
-    v = comp_t[:n].clone().requires_grad_(True)
-    back_t = tcomp.scatter_back(v, dest_t, (N, S), gather_idx=gi_t[:n],
-                                gather_mask=gm_t[:n])
+    v = comp_t.clone().requires_grad_(True)
+    back_t = tcomp.scatter_back(v, dest_t, (N, S))
     (back_t * _t(cot)).sum().backward()
     np.testing.assert_array_equal(back_t.detach().numpy(),
                                   np.asarray(back_j))
     np.testing.assert_array_equal(v.grad.numpy(), g_j[:n])
-    plain = tcomp.scatter_back(comp_t[:n], dest_t, (N, S), fill=0.0)
-    np.testing.assert_array_equal(plain.numpy(), np.asarray(back_j))
 
 
 def _composite_inputs(seed, N=6, S=24):
@@ -346,11 +347,11 @@ def _render_train_padded(renderer, net, occ, ro, rd, rcfg, noises, bg):
                                   cfg.bound).reshape(-1, 3)
     dirs = rd[:, None, :].expand(N, S, 3).reshape(-1, 3)
     m_cap = renderer.train_capacity(N, rcfg)
-    gi, gm, dest = tcomp.compact_samples(valid, m_cap)
-    n = int(gm.sum())
-    sig, rgb = nerf_forward(net, xyz[gi[:n]], dirs[gi[:n]])
+    idx = tcomp.packed_sample_indices(valid, m_cap)
+    dest = tcomp.sample_destinations(valid, m_cap)
+    sig, rgb = nerf_forward(net, xyz[idx], dirs[idx])
     both = tcomp.scatter_back(torch.cat([sig[:, None], rgb], dim=1), dest,
-                              (N, S), gather_idx=gi[:n], gather_mask=gm[:n])
+                              (N, S))
     ws, depth, image = tcompo.composite_rays_train(
         both[..., 0], both[..., 1:], dts, ts, valid & (dest < m_cap),
         march["t0"], rcfg.t_thresh)

@@ -7,9 +7,11 @@ _torch_dp_worker.py). JAX's dp_train_step runs on make_mesh(2) and
 make_mesh(4) of the 8 CPU devices; each rank gets JAX's own march noises
 of its shard (fold_in(k_render, rank)) and the batch's background.
 
-Tolerances: the loss at 2e-2 relative and each gradient leaf at 2e-2 of
-its largest element against JAX (a bf16 network on both sides, as
-tests/test_torch_trainer.py); against the port's own single-process step
+Tolerances: the loss at 2e-2 relative and each gradient leaf norm-wise
+within twice the largest error of the rounding control against JAX (JAX's
+mean gradient with its rays moved one float32 ulp; a bf16 network on both
+sides, tests/test_torch_trainer.py says why); against the port's own
+single-process step
 on the same noises, the loss and per-ray errors at 1e-5 and the table
 gradient at 1e-4 relative (only f32 summation orders differ), the MLP
 weight gradients at 2e-2 (each shard's bf16 weight gradient is rounded
@@ -31,8 +33,8 @@ import torch.distributed as dist
 
 import _torch_dp_worker
 from _torch_parity import (J_MODEL_CFG, J_RENDER_CFG, MODEL_CFG, RENDER_CFG,
-                           blob_occupancy, jax_params, max_rel_err, port_net,
-                           t)
+                           blob_occupancy, jax_params, max_rel_err, norm_err,
+                           port_net, rounding_bound, t, ulp_moves)
 from laenerf_tpu.models import renderer as jren
 from laenerf_tpu.parallel import dp_train_step as j_dp_train_step
 from laenerf_tpu.parallel import make_mesh as j_make_mesh
@@ -91,20 +93,26 @@ def test_dp_train_step_matches_jax(world_size, tmp_path):
     rays_o, rays_d = jtrain.get_rays(jnp.asarray(pose), jnp.asarray(intr),
                                      jnp.asarray(inds), H, W)
     gt = px[:, :3] * px[:, 3:] + bg * (1.0 - px[:, 3:])
-    grads_j = []
-    for r in range(world_size):
-        s = slice(r * shard, (r + 1) * shard)
 
-        def loss_fn(p, s=s, r=r):
-            out = jren.render_rays_train(
-                p, jnp.asarray(occ), rays_o[s], rays_d[s],
-                jax.random.fold_in(k_render, r), model_cfg=J_MODEL_CFG,
-                render_cfg=J_RENDER_CFG, bg_color=jnp.asarray(bg[s]),
-                perturb=True)
-            return jnp.mean(jnp.mean((out["image"] - gt[s]) ** 2, axis=-1))
+    def mean_grads(rays_o, rays_d):
+        grads = []
+        for r in range(world_size):
+            s = slice(r * shard, (r + 1) * shard)
 
-        grads_j.append(jax.grad(loss_fn)(params))
-    grads_j = jax.tree.map(lambda *g: sum(g) / world_size, *grads_j)
+            def loss_fn(p, s=s, r=r):
+                out = jren.render_rays_train(
+                    p, jnp.asarray(occ), jnp.asarray(rays_o[s]),
+                    jnp.asarray(rays_d[s]), jax.random.fold_in(k_render, r),
+                    model_cfg=J_MODEL_CFG, render_cfg=J_RENDER_CFG,
+                    bg_color=jnp.asarray(bg[s]), perturb=True)
+                return jnp.mean(jnp.mean((out["image"] - gt[s]) ** 2,
+                                         axis=-1))
+
+            grads.append(jax.grad(loss_fn)(params))
+        return jax.tree.map(lambda *g: sum(g) / world_size, *grads)
+
+    grads_j = mean_grads(rays_o, rays_d)
+    controls = [mean_grads(*rays) for rays in ulp_moves(rays_o, rays_d)]
     # JAX's mesh step (it donates its state: a copy of the params)
     opt = jtrain.make_optimizer(1e-2, 100)
     p0 = jax.tree.map(jnp.array, params)
@@ -132,13 +140,21 @@ def test_dp_train_step_matches_jax(world_size, tmp_path):
     assert got["per_ray_error"].shape == (N_RAYS,)
     np.testing.assert_allclose(float(got["loss"]), float(aux_j["loss"]),
                                rtol=2e-2)
-    ref = {"encoder": grads_j["encoder"]}
-    for name in ("sigma_net", "color_net"):
-        for i, g in enumerate(grads_j[name]):
-            ref[f"{name}.layers.{i}.weight"] = np.asarray(g).T
+
+    def by_name(grads):
+        out = {"encoder": np.asarray(grads["encoder"])}
+        for name in ("sigma_net", "color_net"):
+            for i, g in enumerate(grads[name]):
+                out[f"{name}.layers.{i}.weight"] = np.asarray(g).T
+        return out
+
+    ref, controls = by_name(grads_j), [by_name(c) for c in controls]
     for name, r in ref.items():
-        assert np.abs(np.asarray(r)).max() > 0
-        assert max_rel_err(got["grad." + name], r) < 2e-2, name
+        assert np.abs(r).max() > 0
+        err = norm_err(got["grad." + name], r)
+        bound = rounding_bound(r, [c[name] for c in controls])
+        print(f"{name}: grad error {err:.3e}, bound {bound:.3e}")
+        assert err <= bound, f"{name}: {err:.3e} > {bound:.3e}"
 
     # the port's own single-process step on the same rays and noises
     net, ema = port_net(tree), port_net(tree).requires_grad_(False)

@@ -13,6 +13,10 @@ Tolerances:
     2e-3 absolute, with the density grid and with the edit grid itself
     (grow_grid) as the march source (bf16 network on both sides, as in
     test_torch_trainer.py's render).
+  * render_rays_distill with an all-zero edit grid against
+    render_rays_infer with no background (one round loop): image and
+    weights bit for bit, depth + t0 * weights at 1e-6 relative and
+    absolute (float32 rounding of the sums), nothing flagged as edited.
   * EditDataset views: x_term and weights at 2e-3 absolute on the pixels
     both keep; at most 0.5% of a view's pixels differ in mask membership
     (a weight near a filter threshold may fall either side).
@@ -131,6 +135,32 @@ class _Views:
 
     def __len__(self):
         return len(self.poses)
+
+
+def test_distill_with_empty_edit_grid_is_infer():
+    """render_rays_distill and render_rays_infer share one round loop: with
+    an all-zero edit grid and no background, distill's image and weights
+    are infer's bit for bit, its depth (from t = 0) is infer's (from the
+    perturbed origin t0) plus t0 * weights, and no weight is flagged as
+    edited."""
+    net = port_net(jax_params(45))
+    occ = t(blob_occupancy(46))
+    rays_o, rays_d = (t(a) for a in camera_rays(47, 300))
+    noises = torch.rand((300,), generator=torch.Generator().manual_seed(48))
+    kw = dict(render_cfg=RENDER_CFG, perturb=True, noises=noises)
+    infer = tren.render_rays_infer(net, occ, rays_o, rays_d, bg_color=0.0,
+                                   **kw)
+    distill = tren.render_rays_distill(net, occ, torch.zeros_like(occ),
+                                       rays_o, rays_d, **kw)
+    assert torch.equal(distill["image"], infer["image"])
+    assert torch.equal(distill["weights"], infer["weights_sum"])
+    t0 = tmarch.march_origin(infer["nears"], noises, RENDER_CFG.march_cfg)
+    want = infer["depth"] + t0 * infer["weights_sum"]
+    np.testing.assert_allclose(distill["depth"].numpy(), want.numpy(),
+                               rtol=1e-6, atol=1e-6)
+    assert not distill["weights_edit"].any()
+    assert not distill["depth_edit"].any()
+    assert float(infer["weights_sum"].max()) > 0.5  # the rays hit the blob
 
 
 def _trainers(tmp_path, tree, occ, render_cfg=J_RENDER_CFG):

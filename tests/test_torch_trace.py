@@ -266,6 +266,70 @@ def test_samples_match_k1_rows(nerf):
         assert k1["attrs"]["C"] == MODEL_CFG.level_dim
 
 
+def _host_waits(monkeypatch):
+    """The host waits that torch calls make on the CPU path, in order, as
+    the list returned: each `nonzero` (its size) and each tensor read back
+    as a Python bool or number."""
+    waits = []
+    nonzero = torch.nonzero
+
+    def counted_nonzero(*a, **k):
+        waits.append("nonzero")
+        return nonzero(*a, **k)
+
+    monkeypatch.setattr(torch, "nonzero", counted_nonzero)
+    for name in ("__bool__", "__int__", "__float__", "__index__", "item",
+                 "tolist"):
+        def read(self, *a, _real=getattr(torch.Tensor, name), _name=name,
+                 **k):
+            waits.append(_name)
+            return _real(self, *a, **k)
+        monkeypatch.setattr(torch.Tensor, name, read)
+    return waits
+
+
+def test_one_compaction_wait_a_round_and_cascade(nerf, monkeypatch):
+    """Each inference round and each cascade of a partial refresh waits for
+    the host once to compact its samples: nonzero's size, counted in
+    sync.compact_nonzero. The round loop's other wait is its alive test."""
+    from laenerf_tpu_torch.models import occupancy, renderer
+
+    tr, _ = nerf
+    H = RENDER_CFG.grid_size
+    r = torch.arange(H, dtype=torch.float32) - (H - 1) / 2
+    ball = (r[:, None, None] ** 2 + r[None, :, None] ** 2
+            + r[None, None, :] ** 2 < (H / 3) ** 2)
+    g = torch.Generator().manual_seed(3)
+    rays_d = torch.rand((64, 3), generator=g) - 0.5 - torch.tensor(
+        [0.2, -0.3, -2.5])
+    rays_d = rays_d / rays_d.norm(dim=-1, keepdim=True)
+    rays_o = torch.tensor([0.2, -0.3, -2.5]).expand(64, 3)
+    waits = _host_waits(monkeypatch)
+    timers.start()
+    out = renderer.render_rays_infer(
+        tr.ema_net, ball[None].to(torch.uint8), rays_o, rays_d,
+        render_cfg=RENDER_CFG)
+    rec = timers.stop()
+    rounds = out["rounds"]
+    assert rounds > 1
+    assert waits.count("nonzero") == rounds
+    assert rec["counters"]["sync.compact_nonzero"] == rounds
+    assert waits.count("__bool__") in (rounds, rounds + 1)  # alive test
+    assert set(waits) == {"nonzero", "__bool__"}
+
+    state = occupancy.occupancy_init(2, 16, device="cpu")
+    state.density_grid = torch.rand((2, 16, 16, 16), generator=g) - 0.5
+    state.iter_density = 20
+    waits.clear()
+    timers.start()
+    occupancy.update_occupancy_partial(
+        state, lambda x: x.norm(dim=-1), bound=2.0, generator=g)
+    rec = timers.stop()
+    assert waits == ["nonzero", "nonzero"]  # one a cascade
+    assert {k: n for k, n in rec["counters"].items()
+            if k.startswith("sync.")} == {"sync.compact_nonzero": 2}
+
+
 @pytest.mark.parametrize("style", [False, True])
 def test_laenerf_step_phases(style):
     """Each LAENeRF step has its four phases once each under laenerf.step,

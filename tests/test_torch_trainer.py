@@ -5,12 +5,30 @@ The random background and march noises of each step are JAX's own draws
 (train_step splits its key into k_bg, k_render, k_next; render_rays_train
 draws the noises from k_render), handed to the port as tensors.
 
-Tolerances: losses at 2e-2 relative; the step-1 gradient of every
-parameter leaf at 2e-2 relative to the leaf's max (bf16 network on both
-sides; the table gradient also differs by JAX's bf16 view rounding, see
-test_torch_hashgrid.py). Parameters after Adam are not compared: with eps
-1e-15 the first update is about lr * sign(g), so one bf16 sign flip moves
-an entry by a whole lr. The rendered image at 2e-3.
+Tolerances: losses at 2e-2 relative. The step-1 gradient of every
+parameter leaf norm-wise (||port - JAX|| / ||JAX||) within a bound the
+test derives from a rounding control:
+  * The two sides' rays differ by float32 rounding only (get_rays rounds
+    its products and norm differently: a third of the directions' entries
+    one ulp apart); every later stage, fed the same inputs and cotangents,
+    agrees to float32 rounding (the MLPs bit for bit), the table gradient
+    also by JAX's bf16 view rounding (see test_torch_hashgrid.py).
+  * JAX's own gradient is not stable under such a rounding: the finest
+    grid level scales a position's last bit by ~2^11 into the
+    interpolation weights, and the bf16 roundings of the MLPs'
+    activations and cotangents then land on the other side of a boundary
+    here and there. With its rays moved one ulp it moves by up to 2.9% of
+    a leaf's largest entry and ~1% norm-wise.
+  * So the control is JAX's gradient with rays_o, then rays_d, moved one
+    float32 ulp up and down (_torch_parity.ulp_moves), and each leaf's
+    error must be within twice the largest of the four controls' errors
+    (_torch_parity.rounding_bound). The norm is the measure because a
+    rounding flips few entries while a fault moves them all: skipping the
+    table's bf16 rounding before the gather, or dropping each ray's last
+    sample, exceeds the bound.
+Parameters after Adam are not compared: with eps 1e-15 the first update
+is about lr * sign(g), so one bf16 sign flip moves an entry by a whole
+lr. The rendered image at 2e-3.
 """
 
 import dataclasses
@@ -21,7 +39,8 @@ import numpy as np
 import torch
 
 from _torch_parity import (J_MODEL_CFG, J_RENDER_CFG, MODEL_CFG, RENDER_CFG,
-                           blob_occupancy, jax_params, port_net, t)
+                           blob_occupancy, jax_params, norm_err, port_net,
+                           rounding_bound, t, ulp_moves)
 from laenerf_tpu.models import renderer as jren
 from laenerf_tpu.train import trainer as jtrain
 from laenerf_tpu_torch.convert import params_from_jax, params_to_numpy
@@ -89,9 +108,12 @@ def test_train_steps_loss_and_grads():
             rays_o, rays_d = jtrain.get_rays(
                 jnp.asarray(pose), jnp.asarray(intr), jnp.asarray(inds), H, W)
             gt = px[:, :3] * px[:, 3:] + bg * (1.0 - px[:, 3:])
-            grads_j = jax.grad(_jax_loss_fn(
-                jnp.asarray(occ), rays_o, rays_d, jnp.asarray(gt),
-                jnp.asarray(bg), k_render))(state.params)
+            ref_leaves, *controls = [
+                [np.asarray(g) for g in jax.tree.leaves(jax.grad(
+                    _jax_loss_fn(jnp.asarray(occ), jnp.asarray(ro),
+                                 jnp.asarray(rd), jnp.asarray(gt),
+                                 jnp.asarray(bg), k_render))(state.params))]
+                for ro, rd in [(rays_o, rays_d)] + ulp_moves(rays_o, rays_d)]
         state, aux = jtrain.train_step(
             state, jnp.asarray(occ), jnp.asarray(pose), jnp.asarray(intr),
             jnp.asarray(inds), jnp.asarray(px), key, model_cfg=J_MODEL_CFG,
@@ -109,15 +131,15 @@ def test_train_steps_loss_and_grads():
             for name in ("sigma_net", "color_net"):
                 grads_t[name] = [lin.weight.grad.numpy().T
                                  for lin in getattr(net, name).layers]
-            ref_leaves = jax.tree.leaves(grads_j)
             got_leaves = jax.tree.leaves(grads_t)
             assert len(ref_leaves) == len(got_leaves) == 6
-            for g, r in zip(got_leaves, ref_leaves):
-                r = np.asarray(r)
-                scale = np.abs(r).max()
-                assert scale > 0
-                err = np.abs(g - r).max() / scale
-                assert err < 2e-2, f"step-1 grad error {err:.3e}"
+            for k, (g, r) in enumerate(zip(got_leaves, ref_leaves)):
+                assert np.abs(r).max() > 0
+                err = norm_err(g, r)
+                bound = rounding_bound(r, [c[k] for c in controls])
+                print(f"leaf {k}: step-1 grad error {err:.3e}, bound "
+                      f"{bound:.3e}")
+                assert err <= bound, f"leaf {k}: {err:.3e} > {bound:.3e}"
 
     print("losses jax", losses_j, "port", losses_t)
     np.testing.assert_allclose(losses_t, losses_j, rtol=2e-2)
